@@ -1,0 +1,87 @@
+"""Canonicalization infos: dataclasses of tensors.
+
+Counterpart of `equiadapt_tpu/common/info.py` (discrete and identity
+infos; the continuous infos come with the continuous slice). Every
+`canonicalize` returns its info, and `invert_canonicalization`,
+`prior_regularization_loss` and `identity_metric` read it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+__all__ = [
+    "DiscreteGroupElement",
+    "DiscreteCanonicalizationInfo",
+    "IdentityCanonicalizationInfo",
+    "prior_regularization_loss",
+    "identity_metric",
+]
+
+
+@dataclass
+class DiscreteGroupElement:
+    """Selected element of C_n or D_n.
+
+    rotation_deg: (B,) angle in degrees.
+    reflection: (B,) indicator in [0, 1]; None for rotation groups.
+    """
+
+    rotation_deg: Tensor
+    reflection: Optional[Tensor] = None
+
+
+@dataclass
+class DiscreteCanonicalizationInfo:
+    """Everything one discrete canonicalize produces.
+
+    group_activations: (B, |G|) raw activations (prior loss, identity metric).
+    onehot: (B, |G|) selection one-hot.
+    element: the selected element.
+    extras: auxiliary tensors of variant-specific losses.
+    """
+
+    group_activations: Tensor
+    onehot: Tensor
+    element: DiscreteGroupElement
+    num_rotations: int = 4
+    group_type: str = "rotation"
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def num_group(self) -> int:
+        return self.num_rotations * (2 if self.group_type == "roto-reflection" else 1)
+
+
+@dataclass
+class IdentityCanonicalizationInfo:
+    """No-op canonicalization."""
+
+
+def prior_regularization_loss(info) -> Tensor:
+    """Cross-entropy of the raw activations against the identity element
+    (class 0) for a discrete info; 0 for the identity."""
+    if isinstance(info, IdentityCanonicalizationInfo):
+        return torch.tensor(0.0)
+    if isinstance(info, DiscreteCanonicalizationInfo):
+        logp = F.log_softmax(info.group_activations, dim=-1)
+        return -torch.mean(logp[..., 0])
+    raise TypeError(f"Unknown canonicalization info: {type(info)}")
+
+
+def identity_metric(info) -> Tensor:
+    """Fraction of the batch whose argmax is the identity element; 1 for
+    the identity."""
+    if isinstance(info, IdentityCanonicalizationInfo):
+        return torch.tensor(1.0)
+    if isinstance(info, DiscreteCanonicalizationInfo):
+        return torch.mean(
+            (torch.argmax(info.group_activations, dim=-1) == 0).float()
+        )
+    raise TypeError(f"Unknown canonicalization info: {type(info)}")

@@ -1,0 +1,71 @@
+"""Discrete group-element selection on (B, |G|) activations.
+
+Counterpart of `equiadapt_tpu/common/selector.py`. Ties go to the first
+maximum, as `jnp.argmax` and `torch.argmax` both pick. The Gumbel variant
+takes its noise as a tensor, so a caller (or a test) controls the draws,
+for instance from a `torch.Generator`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+__all__ = [
+    "hard_onehot",
+    "straight_through_onehot",
+    "gumbel_softmax_onehot",
+    "select_onehot",
+]
+
+
+def hard_onehot(group_activations: Tensor) -> Tensor:
+    """Argmax one-hot over the last axis, in the activations' dtype."""
+    idx = torch.argmax(group_activations, dim=-1)
+    return F.one_hot(idx, group_activations.shape[-1]).to(group_activations.dtype)
+
+
+def straight_through_onehot(
+    group_activations: Tensor, beta: float = 1.0, training: bool = True
+) -> Tensor:
+    """Forward = argmax one-hot, backward = softmax(beta * activations);
+    the hard one-hot alone outside training."""
+    hard = hard_onehot(group_activations)
+    if not training:
+        return hard
+    soft = torch.softmax(beta * group_activations, dim=-1)
+    return hard + soft - soft.detach()
+
+
+def gumbel_softmax_onehot(
+    group_activations: Tensor, gumbels: Tensor, tau: float = 1.0
+) -> Tensor:
+    """Hard Gumbel-softmax with the Gumbel(0, 1) noise `gumbels` given."""
+    perturbed = (group_activations + gumbels) / tau
+    soft = torch.softmax(perturbed, dim=-1)
+    hard = hard_onehot(perturbed)
+    return hard + soft - soft.detach()
+
+
+def select_onehot(
+    group_activations: Tensor,
+    *,
+    gradient_trick: str = "straight_through",
+    beta: float = 1.0,
+    training: bool = True,
+    gumbels: Optional[Tensor] = None,
+) -> Tensor:
+    """Dispatch on the gradient trick, as the JAX package does."""
+    if gradient_trick == "straight_through":
+        return straight_through_onehot(group_activations, beta=beta, training=training)
+    if gradient_trick == "gumbel_softmax":
+        if not training:
+            return hard_onehot(group_activations)
+        if gumbels is None:
+            raise ValueError("gumbel_softmax needs its noise during training")
+        return gumbel_softmax_onehot(group_activations, gumbels)
+    raise ValueError(f"Gradient trick {gradient_trick} not implemented")

@@ -1,0 +1,94 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles on its own into a shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds), under
+`equiadapt_tpu_torch/_build/`. The library name carries a hash of the source,
+so an edited source is rebuilt and a stale library is never loaded. The build
+runs at first use, in the process that needs the kernel; `build_all` starts
+one nvcc per source at once, for a caller that wants every kernel ready.
+
+Nothing here runs when a module is imported, and nothing here is reached for
+CPU tensors: the wrappers take their plain PyTorch versions there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("select_warp",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+# compiler output (ptxas register and shared-memory report) per source
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the port's CUDA kernels "
+        "are built from source at first use"
+    )
+
+
+def _target(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> None:
+    """Compile every named source not built yet, one nvcc each, all started
+    together; each library is written under a temporary name and renamed
+    when its nvcc succeeds."""
+    with _lock:
+        jobs = []
+        for name in names:
+            target = _target(name)
+            if target.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, proc, tmp, target))
+        for name, proc, tmp, target in jobs:
+            log, _ = proc.communicate()
+            build_logs[name] = log
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            os.replace(tmp, target)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all((name,))
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(_target(name)))
+        return _libs[name]

@@ -1,0 +1,345 @@
+"""Image warps of the discrete canonicalizer's eval path, in PyTorch.
+
+Counterpart of `equiadapt_tpu/ops/warp.py` (main-path subset). Public
+functions keep the JAX package's NHWC layout; the `_from_nchw` residual
+warps take and give (B, C, H, W), the layout the select kernels read.
+
+* `_static_rotate*` is the exact-mode residual source: four bilinear taps per
+  pixel whose indices and weights are computed once per (H, W, angle, mode)
+  on the host in float64 numpy (kornia `rotate` semantics, centre
+  ((W-1)/2, (H-1)/2)) and moved to the device once.
+* `rotate_twopass*` is the fast-mode residual source: one vertical and one
+  horizontal 1-D interpolation, each a batched matrix product. The two
+  products stay `torch.einsum`, as the JAX package leaves them to XLA; V is
+  rounded to the payload dtype between them, as in JAX.
+* `rotate_select_fast` and `rotate_discrete` are the JAX package's pure
+  formulations of the hard select and of the one-hot blend. The port's
+  eval path does not call them; they are references for the tests.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+__all__ = [
+    "hflip",
+    "group_angles",
+    "rotate_twopass",
+    "rotate_twopass_nchw",
+    "rotate_twopass_from_nchw",
+    "rotate_select_fast",
+    "rotate_discrete",
+    "center_crop",
+    "resize",
+]
+
+
+def hflip(x: Tensor) -> Tensor:
+    """Horizontal flip (width axis) of an NHWC image batch."""
+    return torch.flip(x, dims=(2,))
+
+
+@functools.lru_cache(maxsize=None)
+def _angle_table(num_rotations: int) -> np.ndarray:
+    """Host fp32 linspace(0, 360, n+1)[:n], the JAX `group_angles` values."""
+    return np.linspace(0.0, 360.0, num_rotations + 1, dtype=np.float32)[
+        :num_rotations
+    ]
+
+
+def _angle_tuple(num_rotations: int) -> tuple:
+    """The angle table as Python floats (static filter-rotation angles)."""
+    return tuple(float(a) for a in _angle_table(num_rotations))
+
+
+def group_angles(
+    num_rotations: int, device="cuda", dtype: torch.dtype = torch.float32
+) -> Tensor:
+    """Rotation-angle table linspace(0, 360, n+1)[:n] in degrees."""
+    return torch.from_numpy(_angle_table(num_rotations)).to(
+        device=device, dtype=dtype
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def _static_warp_taps(H: int, W: int, angle_deg: float, padding_mode: str):
+    """Host bilinear taps of one static rotation: (idx (4, H*W) int32,
+    weights (4, H*W) float32), kornia `rotate` semantics, float64 geometry."""
+    rad = math.radians(angle_deg)
+    a, b = math.cos(rad), math.sin(rad)
+    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+    gy, gx = np.meshgrid(np.arange(H, dtype=np.float64),
+                         np.arange(W, dtype=np.float64), indexing="ij")
+    dx = gx - cx
+    dy = gy - cy
+    sx = a * dx - b * dy + cx
+    sy = b * dx + a * dy + cy
+    x0 = np.floor(sx)
+    y0 = np.floor(sy)
+    fx = (sx - x0).astype(np.float32)
+    fy = (sy - y0).astype(np.float32)
+    idxs, wts = [], []
+    for ddx, ddy, w in (
+        (0, 0, (1 - fx) * (1 - fy)),
+        (1, 0, fx * (1 - fy)),
+        (0, 1, (1 - fx) * fy),
+        (1, 1, fx * fy),
+    ):
+        xi = x0 + ddx
+        yi = y0 + ddy
+        if padding_mode == "border":
+            wt = w
+        else:  # zeros
+            valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+            wt = w * valid.astype(np.float32)
+        xc = np.clip(xi, 0, W - 1).astype(np.int64)
+        yc = np.clip(yi, 0, H - 1).astype(np.int64)
+        idxs.append((yc * W + xc).reshape(-1).astype(np.int32))
+        wts.append(wt.reshape(-1).astype(np.float32))
+    return np.stack(idxs), np.stack(wts)
+
+
+_device_taps: Dict[tuple, Tuple[Tensor, Tensor]] = {}
+
+
+def _taps_on(device: torch.device, H: int, W: int, angle_deg: float,
+             padding_mode: str) -> Tuple[Tensor, Tensor]:
+    """`_static_warp_taps` moved to `device` once and kept there."""
+    key = (str(device), H, W, angle_deg, padding_mode)
+    taps = _device_taps.get(key)
+    if taps is None:
+        idx, wts = _static_warp_taps(H, W, angle_deg, padding_mode)
+        taps = (
+            torch.from_numpy(idx.astype(np.int64)).to(device),
+            torch.from_numpy(wts).to(device),
+        )
+        _device_taps[key] = taps
+    return taps
+
+
+def _quarter_turns(angle_deg: float):
+    """k if angle_deg is a multiple of 90 degrees, else None."""
+    k = angle_deg / 90.0
+    return int(round(k)) % 4 if abs(k - round(k)) < 1e-9 else None
+
+
+def _static_rotate(x: Tensor, angle_deg: float, padding_mode: str) -> Tensor:
+    """Rotate an NHWC batch by one static angle (exact rot90 for multiples
+    of 90 degrees on square images, static-tap bilinear otherwise)."""
+    B, H, W, C = x.shape
+    k = _quarter_turns(angle_deg)
+    if H == W and k is not None:
+        return torch.rot90(x, k, dims=(1, 2))
+    idx, wts = _taps_on(x.device, H, W, float(angle_deg) % 360.0, padding_mode)
+    flat = x.reshape(B, H * W, C)
+    out = None
+    for t in range(4):
+        tap = flat.index_select(1, idx[t]) * wts[t][None, :, None]
+        out = tap if out is None else out + tap
+    return out.reshape(B, H, W, C)
+
+
+def _static_rotate_from_nchw(x: Tensor, angle_deg: float,
+                             padding_mode: str) -> Tensor:
+    """`_static_rotate` for (B, C, H, W) input, emitting NCHW in x's dtype:
+    the same taps, weights and summation order over the flat H*W axis."""
+    B, C, H, W = x.shape
+    k = _quarter_turns(angle_deg)
+    if H == W and k is not None:
+        return torch.rot90(x, k, dims=(2, 3))
+    idx, wts = _taps_on(x.device, H, W, float(angle_deg) % 360.0, padding_mode)
+    flat = x.reshape(B, C, H * W)
+    out = None
+    for t in range(4):
+        tap = flat.index_select(2, idx[t]) * wts[t][None, None, :]
+        out = tap if out is None else out + tap
+    return out.reshape(B, C, H, W).to(x.dtype)
+
+
+def _twopass_matrices(H: int, W: int, angle_deg: float, padding_mode: str,
+                      dtype: torch.dtype, device) -> Tuple[Tensor, Tensor]:
+    """Two-pass (column, then row) rotation resampling matrices.
+
+    Pass A interpolates each input column w vertically at
+    p(y, w) = (b*(w-cx) + (y-cy)) / a + cy; pass B each output row
+    horizontally at q(y, x) = a*(x-cx) - b*(y-cy) + cx, a = cos, b = sin.
+    Built in fp32 as in JAX, then cast to `dtype`.
+
+    Returns M1 (H, H, W): weight of in[h, w] in V[y, w], and
+    M2 (H, W, W): weight of V[y, w] in out[y, x].
+    """
+    rad = math.radians(angle_deg)
+    a, b = math.cos(rad), math.sin(rad)
+    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+    f32 = dict(dtype=torch.float32, device=device)
+    yv = torch.arange(H, **f32)
+    wv = torch.arange(W, **f32)
+    xv = torch.arange(W, **f32)
+
+    def taps(pos, size):
+        lo = torch.floor(pos)
+        f = pos - lo
+        if padding_mode == "border":
+            w0, w1 = 1.0 - f, f
+        else:  # zeros
+            v0 = (lo >= 0) & (lo <= size - 1)
+            v1 = (lo + 1 >= 0) & (lo + 1 <= size - 1)
+            w0 = (1.0 - f) * v0.float()
+            w1 = f * v1.float()
+        i0 = torch.clamp(lo, 0, size - 1).long()
+        i1 = torch.clamp(lo + 1, 0, size - 1).long()
+        return i0, i1, w0, w1
+
+    p = (b * (wv[None, :] - cx) + (yv[:, None] - cy)) / a + cy  # (y, w)
+    h0, h1, u0, u1 = taps(p, H)
+    hh = torch.arange(H, device=device)
+    M1 = ((hh[None, :, None] == h0[:, None, :]) * u0[:, None, :]
+          + (hh[None, :, None] == h1[:, None, :]) * u1[:, None, :]).to(dtype)
+
+    q = a * (xv[None, :] - cx) - b * (yv[:, None] - cy) + cx  # (y, x)
+    w0i, w1i, g0, g1 = taps(q, W)
+    ww = torch.arange(W, device=device)
+    M2 = ((ww[None, :, None] == w0i[:, None, :]) * g0[:, None, :]
+          + (ww[None, :, None] == w1i[:, None, :]) * g1[:, None, :]).to(dtype)
+    return M1, M2
+
+
+def _reduce_angle(angle_deg: float):
+    """angle = 90 k + r with r in [-45, 45]; (k mod 4, r)."""
+    ang = float(angle_deg) % 360.0
+    k = int(round(ang / 90.0))
+    return k % 4, ang - 90.0 * k
+
+
+def rotate_twopass_from_nchw(x: Tensor, angle_deg: float,
+                             padding_mode: str = "border") -> Tensor:
+    """Whole-batch rotation by a static angle as two batched products,
+    (B, C, H, W) in and out. Exact for multiples of 90 degrees."""
+    B, C, H, W = x.shape
+    if H != W:
+        raise ValueError("rotate_twopass_from_nchw requires square images")
+    k, r = _reduce_angle(angle_deg)
+    if abs(r) < 1e-9:
+        return torch.rot90(x, k, dims=(2, 3)) if k else x
+    dt = x.dtype
+    M1, M2 = _twopass_matrices(H, W, r, padding_mode, dt, x.device)
+    V = torch.einsum("yhw,bchw->bcyw", M1, x).to(dt)
+    out = torch.einsum("ywx,bcyw->bcyx", M2, V).to(dt)
+    return torch.rot90(out, k, dims=(2, 3)) if k else out
+
+
+def rotate_twopass_nchw(x: Tensor, angle_deg: float,
+                        padding_mode: str = "border") -> Tensor:
+    """`rotate_twopass` for NHWC input, emitting (B, C, H, W)."""
+    return rotate_twopass_from_nchw(x.permute(0, 3, 1, 2), angle_deg,
+                                    padding_mode)
+
+
+def rotate_twopass(x: Tensor, angle_deg: float,
+                   padding_mode: str = "border") -> Tensor:
+    """Two-pass static rotation of an NHWC batch (fast-mode residual)."""
+    B, H, W, C = x.shape
+    k, r = _reduce_angle(angle_deg)
+    if abs(r) < 1e-9:
+        return torch.rot90(x, k, dims=(1, 2)) if k else x
+    return rotate_twopass_nchw(x, angle_deg, padding_mode).permute(0, 2, 3, 1)
+
+
+def _residual_rotate(x: Tensor, angle_deg: float, padding_mode: str,
+                     mode: str) -> Tensor:
+    if mode == "fast":
+        return rotate_twopass(x, angle_deg, padding_mode)
+    return _static_rotate(x, angle_deg, padding_mode)
+
+
+def rotate_select_fast(x: Tensor, idx: Tensor, num_rotations: int,
+                       sign: float = -1.0,
+                       padding_mode: str = "border") -> Tensor:
+    """Hard per-sample select in fast mode as plain tensor ops (reference):
+    out[b] = rotate(x[b], sign * theta_{idx[b]}), each mod-90 residual warped
+    once by `rotate_twopass`, the quarter turns as exact rot90 blends."""
+    if x.shape[1] != x.shape[2]:
+        onehot = F.one_hot(idx.long(), num_rotations).to(x.dtype)
+        return rotate_discrete(x, onehot, num_rotations, sign, padding_mode)
+    angles = np.linspace(0.0, 360.0, num_rotations + 1)[:num_rotations]
+    residuals, res_of_g, k_of_g = [], [], []
+    for g in range(num_rotations):
+        ang = (sign * float(angles[g])) % 360.0
+        r = ang % 90.0
+        k = int(round((ang - r) / 90.0)) % 4
+        if r not in residuals:
+            residuals.append(r)
+        res_of_g.append(residuals.index(r))
+        k_of_g.append(k)
+    cands = [
+        x if r == 0.0 else rotate_twopass(x, r, padding_mode) for r in residuals
+    ]
+    idx = idx.long()
+    if len(cands) == 1:
+        z = cands[0]
+    else:
+        res_idx = torch.tensor(res_of_g, device=x.device)[idx]
+        oh_r = F.one_hot(res_idx, len(cands)).to(x.dtype)
+        z = sum(c * oh_r[:, i][:, None, None, None] for i, c in enumerate(cands))
+    k_idx = torch.tensor(k_of_g, device=x.device)[idx]
+    k0 = (k_idx % 2).to(x.dtype)[:, None, None, None]
+    k1 = (k_idx // 2).to(x.dtype)[:, None, None, None]
+    w = (1.0 - k0) * z + k0 * torch.rot90(z, 1, dims=(1, 2))
+    return (1.0 - k1) * w + k1 * torch.rot90(w, 2, dims=(1, 2))
+
+
+def rotate_discrete(x: Tensor, onehot: Tensor, num_rotations: int,
+                    sign: float = -1.0, padding_mode: str = "zeros",
+                    mode: str = "exact") -> Tensor:
+    """One-hot blend of static warps (reference):
+    out[b] = sum_g onehot[b, g] * rotate(x[b], sign * theta_g)."""
+    angles = np.linspace(0.0, 360.0, num_rotations + 1)[:num_rotations]
+    square = x.shape[1] == x.shape[2]
+    warped: dict = {}
+    out = None
+    for g in range(num_rotations):
+        ang = (sign * float(angles[g])) % 360.0
+        if square:
+            residual = ang % 90.0
+            k = int(round((ang - residual) / 90.0)) % 4
+            if residual not in warped:
+                warped[residual] = (
+                    x if residual == 0.0
+                    else _residual_rotate(x, residual, padding_mode, mode)
+                )
+            cand = torch.rot90(warped[residual], k, dims=(1, 2))
+        else:
+            cand = _static_rotate(x, ang, padding_mode)
+        term = cand * onehot[:, g][:, None, None, None]
+        out = term if out is None else out + term
+    return out
+
+
+def center_crop(x: Tensor, size: Tuple[int, int]) -> Tensor:
+    """torchvision CenterCrop semantics on NHWC (top = round((H - h) / 2))."""
+    H, W = x.shape[1], x.shape[2]
+    h, w = size
+    top = int(round((H - h) / 2.0))
+    left = int(round((W - w) / 2.0))
+    return x[:, top : top + h, left : left + w, :]
+
+
+def resize(x: Tensor, size: Tuple[int, int]) -> Tensor:
+    """Bilinear resize of an NHWC batch, half-pixel centres, antialiased
+    when it shrinks: the behaviour of `jax.image.resize(..., "linear")`,
+    whose antialias defaults to True. Reduced-precision input is resized in
+    fp32 and rounded once."""
+    xn = x.permute(0, 3, 1, 2)
+    out = F.interpolate(
+        xn.float(), size=tuple(size), mode="bilinear", align_corners=False,
+        antialias=True,
+    )
+    return out.to(x.dtype).permute(0, 2, 3, 1)

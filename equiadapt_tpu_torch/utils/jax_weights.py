@@ -1,0 +1,110 @@
+"""Carry weights from a Flax variable tree into the port's modules.
+
+`load_flax_variables(module, variables)` takes the Flax
+`{"params": ..., "batch_stats": ...}` tree as nested dicts of numpy arrays
+(convert JAX arrays with `np.asarray` first; nothing here imports JAX) and
+fills the torch module in place. The port's submodules carry the names
+Flax gives their counterparts, so a leaf's path names its torch owner:
+
+* `nn.Conv2d`: `kernel` HWIO -> `weight` OIHW, `bias` as is;
+* `nn.Linear`: `kernel` (in, out) -> `weight` (out, in);
+* BatchNorm: `scale` / `bias` -> `weight` / `bias`, batch stats `mean` /
+  `var` -> `running_mean` / `running_var`;
+* GCNN layers: `weights` and `bias` copied as they are (same shapes).
+
+It raises on a leaf it cannot place and on a torch parameter or buffer
+left unfilled (other than BatchNorm's `num_batches_tracked`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from equiadapt_tpu_torch.images.networks.group_conv import _GroupConvBase
+
+__all__ = ["load_flax_variables"]
+
+_BN_NAMES = {
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(value)
+
+
+def _convert(owner: nn.Module, collection: str, leaf: str, value: np.ndarray):
+    """(torch attribute name, array in torch layout) for one Flax leaf."""
+    if isinstance(owner, nn.modules.batchnorm._BatchNorm):
+        name = _BN_NAMES.get((collection, leaf))
+        if name is not None:
+            return name, value
+    elif collection == "params" and isinstance(owner, nn.Conv2d):
+        if leaf == "kernel":
+            return "weight", value.transpose(3, 2, 0, 1)
+        if leaf == "bias":
+            return "bias", value
+    elif collection == "params" and isinstance(owner, nn.Linear):
+        if leaf == "kernel":
+            return "weight", value.T
+        if leaf == "bias":
+            return "bias", value
+    elif collection == "params" and isinstance(owner, _GroupConvBase):
+        if leaf in ("weights", "bias"):
+            return leaf, value
+    raise KeyError(
+        f"no place for Flax leaf {collection}/{leaf} in {type(owner).__name__}"
+    )
+
+
+def load_flax_variables(module: nn.Module,
+                        variables: Mapping[str, Any]) -> nn.Module:
+    """Fill `module` from a Flax variable tree of numpy arrays; returns it."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"unknown Flax collections: {sorted(unknown)}")
+    filled: Dict[str, np.ndarray] = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(collection, {})):
+            *scope, leaf = path
+            try:
+                owner = module.get_submodule(".".join(scope))
+            except AttributeError as e:
+                raise KeyError(
+                    f"no submodule for Flax leaf {collection}/{'/'.join(path)}"
+                ) from e
+            name, array = _convert(owner, collection, leaf, value)
+            filled[".".join(scope + [name])] = array
+
+    targets = dict(module.named_parameters())
+    targets.update(
+        (n, b) for n, b in module.named_buffers()
+        if not n.endswith("num_batches_tracked")
+    )
+    missing = sorted(set(targets) - set(filled))
+    if missing:
+        raise KeyError(f"torch tensors left unfilled: {missing}")
+    extra = sorted(set(filled) - set(targets))
+    if extra:
+        raise KeyError(f"Flax leaves with no torch tensor: {extra}")
+    with torch.no_grad():
+        for name, array in filled.items():
+            target = targets[name]
+            if tuple(target.shape) != array.shape:
+                raise ValueError(
+                    f"{name}: torch shape {tuple(target.shape)}, "
+                    f"Flax shape {array.shape}"
+                )
+            target.copy_(torch.from_numpy(np.array(array)))
+    return module
