@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out results.json]
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles the port's CUDA sources from this checkout;
-3. kernels: K1 (steered rotate-select) and K2 (fused rotate-select-roll)
-   against their plain PyTorch versions with `torch.equal` (fp32 and bf16;
-   C4, C8, D8; C in {3, 16}; random indices, shifts and reflections; and the
-   full main-path shapes);
-4. main path at full width: batch 256, 224 px, C8 GCNN energy
+2. build: nvcc compiles the port's CUDA sources from this checkout, one
+   nvcc per source, all started together;
+3. kernels against their plain PyTorch versions:
+   - K1 (steered rotate-select) and K2 (fused rotate-select-roll) with
+     `torch.equal` (fp32 and bf16; C4, C8, D8; C in {3, 16}; random
+     indices, shifts and reflections; and the full main-path shapes);
+   - K5 (centered quarter turn) with `torch.equal`, K6 (three-shear
+     residual) and K7 (exact bilinear warp) within 2e-6 * max|x| (fp32)
+     and one bf16 ulp (bf16), on ragged small cases and the main-path
+     shapes, fp32 and bf16, both padding modes, with a NaN rotation in
+     every batch (its sample must be all NaN, the others finite);
+4. discrete main path at full width: batch 256, 224 px, C8 GCNN energy
    (3 -> 8 channels, 3x3, 2 layers), ResNet-50 (10 classes) and the
    invert of a (256, 224, 224, 16) regular-rep map, in the two presets of
    bench.py: exact / fp32 (crop 0.9, resize 64, unpooled GCNN) and serving
@@ -21,11 +27,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    first samples must agree with the port's CPU run (plain kernels); and
    canonicalizing torch.rot90(x) must select the element shifted by two for
    at least 99% of the batch, with canonical images within 1e-4;
-5. times (CUDA events, after warm-up): canonicalize + invert images/s, the
-   canonicalizer's overhead over the bare ResNet-50, device time by kernel
-   name for one canonicalize + invert and one ResNet-50 call
-   (torch.profiler), and per kernel its time, its bound, its plain
-   version's time and its launches.
+5. continuous main path at full width: batch 256, 224 px,
+   `SteerableNetwork(3, 4 fields per order, 5x5, 1 layer)`, crop 0.9,
+   resize 64, rotation group, ResNet-50 and the scalar invert of a
+   (256, 224, 224, 16) map, in two presets: exact / fp32 (K7 for
+   canonicalize and invert) and serving / bf16 (fast warp K5 + K6, bf16
+   network input, warp and output, bf16 ResNet-50). Launch counts as in
+   phase 4. Outputs must be finite; the first 8 samples must agree with the
+   port's CPU run; and in the exact preset, canonicalizing torch.rot90(x)
+   must give the quarter-turned matrix rep within 1e-4 for at least 99% of
+   the batch;
+6. times (CUDA events, after warm-up), per preset: canonicalize +
+   invert images/s, the canonicalizer's overhead over the bare ResNet-50,
+   device time by kernel name for one canonicalize + invert and one
+   ResNet-50 call (torch.profiler); and per kernel its time, its bound,
+   its plain version's time, one PyTorch call's time where one computes
+   the same function, and its launches.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
@@ -37,12 +54,14 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 B, IMAGE, NUM_ROT, FEATURE_CH = 256, 224, 8, 16
 DEVICE = "cuda"
@@ -50,6 +69,21 @@ SOURCE = "equiadapt_tpu_torch/csrc/select_warp.cu"
 TPU_KERNEL = {
     "select_planes": "equiadapt_tpu/ops/pallas/select_warp.py:233",
     "select_planes_rolled": "equiadapt_tpu/ops/pallas/select_warp.py:630",
+}
+# continuous kernels: (source, TPU kernel's pallas_call)
+CONT_KERNEL = {
+    "rot90_centered_select": ("equiadapt_tpu_torch/csrc/shear_rotate.cu",
+                              "equiadapt_tpu/ops/pallas/shear_rotate.py:358"),
+    "shear_rotate_residual": ("equiadapt_tpu_torch/csrc/shear_rotate.cu",
+                              "equiadapt_tpu/ops/pallas/shear_rotate.py:182"),
+    "warp_rotate_center_exact": ("equiadapt_tpu_torch/csrc/bilinear_warp.cu",
+                                 "equiadapt_tpu/ops/pallas/bilinear_warp.py:323"),
+}
+# kernels each continuous preset must launch
+CONT_PRESET_KERNELS = {
+    "continuous_exact": ("warp_rotate_center_exact/float32",),
+    "continuous_serving": ("rot90_centered_select/bfloat16",
+                           "shear_rotate_residual/bfloat16"),
 }
 # memory bandwidth of the card, bytes/s (NVIDIA data sheets)
 BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
@@ -123,6 +157,80 @@ def check_kernels(sw, gen):
     log(f"kernel checks: {n_checked} small cases torch.equal to the plain versions")
 
 
+def rotations(theta):
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+
+
+def continuous_inputs(b, H, W, C, dtype, gen):
+    """Images in [0, 1], quarter-turn indices, residual angles in
+    [-pi/4, pi/4] and rotations over the circle; sample 0 of r and R is NaN
+    (a zero steerable vector normalizes to a NaN rotation). Drawn on the
+    generator's device."""
+    dev = dict(generator=gen, device=gen.device)
+    x = torch.rand(b, H, W, C, **dev).to(DEVICE, dtype)
+    k = torch.randint(-8, 8, (b,), **dev).to(DEVICE)
+    r = (torch.rand(b, **dev) * 2 - 1) * (math.pi / 4)
+    R = rotations((torch.rand(b, **dev) * 2 - 1) * math.pi)
+    r[0] = float("nan")
+    R[0] = float("nan")
+    return x, k, r.to(DEVICE), R.to(DEVICE)
+
+
+def within_bar(got, ref, x):
+    """max |got - ref| over non-NaN values, after checking that both are NaN
+    at the same places; raises past 2e-6 * max|x| (fp32) or one bf16 ulp."""
+    nan = torch.isnan(got.float())
+    assert torch.equal(nan, torch.isnan(ref.float())), "NaN pattern differs"
+    g = torch.where(nan, 0.0, got.float())
+    r = torch.where(nan, 0.0, ref.float())
+    err = (g - r).abs()
+    if got.dtype == torch.bfloat16:  # one ulp of v is at most |v| * 2^-7
+        assert bool((err <= torch.maximum(g.abs(), r.abs()) * 2.0**-7).all()), err.max()
+    else:
+        assert err.max().item() <= 2e-6 * x.float().abs().max().item(), err.max()
+    return err.max().item()
+
+
+def continuous_calls(sr, bw, name, x, k, r, R, padding):
+    """(kernel call, plain call) of one continuous kernel."""
+    H, W = x.shape[1], x.shape[2]
+    if name == "rot90_centered_select":
+        return (lambda: sr.rot90_centered_select(x, k, W // 2, H // 2, padding),
+                lambda: sr.rot90_centered_select_plain(x, k, W // 2, H // 2, padding))
+    if name == "shear_rotate_residual":
+        c = (float(W // 2), float(H // 2))
+        return (lambda: sr.shear_rotate_residual(x, r, *c, padding),
+                lambda: sr.shear_rotate_residual_plain(x, r, *c, padding))
+    return (lambda: bw.warp_rotate_center_exact(x, R, padding),
+            lambda: bw._warp_center_affine(x, R, padding))
+
+
+def check_continuous_kernels(sr, bw, gen):
+    """K5, K6 and K7 against their plain versions on ragged small cases,
+    with a NaN row; launches here are not counted as the main path's."""
+    n_checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, H, W, C in ((5, 17, 17, 3), (3, 40, 40, 16), (4, 33, 33, 1),
+                           (3, 24, 40, 3)):
+            x, k, r, R = continuous_inputs(b, H, W, C, dtype, gen)
+            for padding in ("border", "zeros"):
+                for name in CONT_KERNEL:
+                    if H != W and name == "rot90_centered_select":
+                        continue  # quarter turns take square images
+                    run, plain = continuous_calls(sr, bw, name, x, k, r, R, padding)
+                    got, ref = run(), plain()
+                    sync()
+                    if name == "rot90_centered_select":
+                        assert torch.equal(got, ref), ("K5", dtype, b, H, C, padding)
+                    else:
+                        within_bar(got, ref, x)
+                        assert bool(torch.isnan(got[0].float()).all()), name
+                        assert bool(torch.isfinite(got[1:].float()).all()), name
+                    n_checked += 1
+    log(f"continuous kernel checks: {n_checked} small cases within their bars")
+
+
 def main_shape_inputs(sw, gen, C, dtype, rolled):
     """Sources and indices at a main-path shape: the batch and its 45-degree
     residual warp (C8, two sources)."""
@@ -136,11 +244,36 @@ def main_shape_inputs(sw, gen, C, dtype, rolled):
     return srcs, src, k, shift
 
 
-def kernel_entry(sw, name, dtype, gen, bw, launches):
+def gather_ms(sw, srcs, src, k, shift, got):
+    """Yardstick: one torch.gather over the stacked sources with the flat
+    index of the same permutation, built outside the timed window (by the
+    plain version run on source-index values); checked equal to the
+    kernel's output."""
+    Bs, C, N, _ = srcs[0].shape
+    n = Bs * C * N * N
+    iota = [torch.arange(s * n, (s + 1) * n, device=DEVICE).view(Bs, C, N, N)
+            for s in range(len(srcs))]
+    if shift is None:
+        idx = sw.select_planes_plain(iota, src, k)
+    else:
+        idx = sw.select_planes_plain(iota, src, k, shift, None, NUM_ROT, NUM_ROT)
+    idx = idx.reshape(-1)
+    del iota
+    flat = torch.stack(srcs).reshape(-1)
+    run = lambda: torch.gather(flat, 0, idx)
+    assert torch.equal(run().view_as(got), got), "gather yardstick differs"
+    ms = cuda_ms(run, reps=10)
+    del flat, idx
+    return ms
+
+
+def kernel_entry(sw, name, dtype, gen, bw, launches, one_source=False):
     """Check and time one kernel at its main-path shape."""
     rolled = name == "select_planes_rolled"
     C = FEATURE_CH if rolled else 3
     srcs, src, k, shift = main_shape_inputs(sw, gen, C, dtype, rolled)
+    if one_source:  # K1a: the single-source launch of K1
+        srcs, src = srcs[:1], torch.zeros_like(src)
     if rolled:
         run = lambda: sw.select_planes_rolled(srcs, src, k, shift, NUM_ROT, NUM_ROT)
         plain = lambda: sw.select_planes_plain(srcs, src, k, shift, None,
@@ -154,18 +287,106 @@ def kernel_entry(sw, name, dtype, gen, bw, launches):
     err = (got.float() - ref.float()).abs().max().item()
     ms = cuda_ms(run, reps=20)
     plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    library_ms = gather_ms(sw, srcs, src, k, shift, got)
     nbytes = 2 * got.numel() * got.element_size() + sum(
         t.numel() * t.element_size() for t in (src, k, shift) if t is not None)
     bound_ms = nbytes / bw * 1e3
     tag = str(dtype).removeprefix("torch.")
     del srcs, got, ref
+    replaces = TPU_KERNEL[name]
+    if one_source:
+        tag += ",1 source"
+        replaces = "equiadapt_tpu/ops/pallas/select_warp.py:159"
     return {
         "name": f"{name}[{tag}]", "route": "cuda", "source": SOURCE,
-        "replaces": TPU_KERNEL[name], "launches": launches.get(f"{name}/{tag}", 0),
+        "replaces": replaces,
+        "launches": 0 if one_source else launches.get(f"{name}/{tag}", 0),
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+        "library": "torch.gather, precomputed int64 index",
         "shape": [B, C, IMAGE, IMAGE], "bytes": nbytes,
     }
+
+
+def grid_sample_call(x, R, padding):
+    """Yardstick for K7: F.grid_sample (bilinear, align_corners=True) on an
+    NCHW copy with the same sample points; the copy and the grid are made
+    here, outside the timed call. grid_sample takes its grid in the input's
+    dtype, so for bf16 the normalized sample points are rounded to bf16
+    (up to about 0.4 px at 224 px): that call samples a coarser function
+    than K7 computes, and its `library_max_abs_err` shows by how much."""
+    from equiadapt_tpu_torch.ops.kernels.bilinear_warp import _inverse_coefficients
+    from equiadapt_tpu_torch.ops.warp import _dst_grid
+
+    Bx, H, W, _ = x.shape
+    inv = _inverse_coefficients(R, torch.float32)
+    gx, gy = _dst_grid(Bx, H, W, torch.float32, x.device)
+    dx, dy = gx - H // 2, gy - W // 2
+    i00, i01, i10, i11 = (inv[:, q, None, None] for q in range(4))
+    sx = i00 * dx + i01 * dy + H // 2
+    sy = i10 * dx + i11 * dy + W // 2
+    grid = torch.stack([2 * sx / (W - 1) - 1, 2 * sy / (H - 1) - 1], -1).to(x.dtype)
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    return lambda: F.grid_sample(xn, grid, mode="bilinear", padding_mode=padding,
+                                 align_corners=True)
+
+
+def rot90_gather_call(sr, x, k, padding, got):
+    """Yardstick for K5: one torch.gather over the source with one zero
+    element prepended, at the flat index of the same permutation. The index
+    is built outside the timed window, by the plain version run on the
+    values 1..n (a zero-filled pixel keeps 0 and reads the prepended
+    zero); the gather is checked equal to the kernel's output."""
+    H, W = x.shape[1], x.shape[2]
+    iota = torch.arange(1, x.numel() + 1, device=x.device).view_as(x)
+    idx = sr.rot90_centered_select_plain(iota, k, W // 2, H // 2, padding).reshape(-1)
+    del iota
+    flat = torch.cat([x.new_zeros(1), x.reshape(-1)])
+    run = lambda: torch.gather(flat, 0, idx)
+    assert torch.equal(run().view_as(got), got), "K5 gather yardstick differs"
+    return run
+
+
+def continuous_measure(sr, bw, name, dtype, C, padding, gen, bwidth):
+    """Check and time one continuous kernel at a main-path shape."""
+    x, k, r, R = continuous_inputs(B, IMAGE, IMAGE, C, dtype, gen)
+    run, plain = continuous_calls(sr, bw, name, x, k, r, R, padding)
+    got, ref = run(), plain()
+    sync()
+    if name == "rot90_centered_select":
+        assert torch.equal(got, ref), (name, dtype, C)
+        err = 0.0
+    else:
+        err = within_bar(got, ref, x)
+    out = {"ms": cuda_ms(run, reps=20), "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+           "max_abs_err": err, "library_ms": None,
+           "bound_ms": 2 * x.numel() * x.element_size() / bwidth * 1e3,
+           "shape": [B, IMAGE, IMAGE, C], "padding": padding}
+    if name == "rot90_centered_select":
+        lib = rot90_gather_call(sr, x, k, padding, got)
+        out["library_ms"] = cuda_ms(lib, reps=10)
+        out["library"] = "torch.gather, precomputed int64 index, one zero prepended"
+        del lib
+    if name == "warp_rotate_center_exact":
+        lib = grid_sample_call(x, R, padding)
+        diff = (lib().permute(0, 2, 3, 1).float() - got.float()).abs()
+        out["library_ms"] = cuda_ms(lib, reps=10)
+        out["library"] = "F.grid_sample, NCHW, bilinear, align_corners=True"
+        out["library_max_abs_err"] = torch.nan_to_num(diff[1:]).max().item()
+    del x, got, ref
+    return out
+
+
+def continuous_entry(sr, bw, name, dtype, gen, bwidth, launches):
+    """One `kernels` entry: the invert shape (C = 16, zeros) in the main
+    fields, the canonicalize shape (C = 3, border) under "canon"."""
+    tag = str(dtype).removeprefix("torch.")
+    inv = continuous_measure(sr, bw, name, dtype, FEATURE_CH, "zeros", gen, bwidth)
+    canon = continuous_measure(sr, bw, name, dtype, 3, "border", gen, bwidth)
+    source, replaces = CONT_KERNEL[name]
+    return {"name": f"{name}[{tag}]", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches.get(f"{name}/{tag}", 0),
+            "bound_by": "bytes", **inv, "canon": canon}
 
 
 def build_presets(tp):
@@ -201,6 +422,29 @@ def build_presets(tp):
     return {"exact": (exact, resnet), "serving": (serving, resnet_bf16)}
 
 
+def build_continuous_presets(tp, resnet, resnet_bf16):
+    """bench.py's continuous configuration: SteerableNetwork(3, 4, 5x5,
+    1 layer), crop 0.9, resize 64; NormBatchNorm statistics and norm-ReLU
+    biases drawn away from the init's 1 / 0."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    net = tp.SteerableNetwork(3, 4, 5, num_layers=1, device=DEVICE, generator=gen)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if ".bias_" in name:
+                p.normal_(0.0, 0.1, generator=gen)
+            elif name.endswith("scale"):
+                p.uniform_(0.5, 1.5, generator=gen)
+        net.NormBatchNorm_0.norm_sq.uniform_(0.5, 1.5, generator=gen)
+    common = dict(in_shape=(IMAGE, IMAGE, 3), input_crop_ratio=0.9,
+                  resize_shape=64, group_type="rotation")
+    exact = tp.SteerableImageCanonicalization(net, warp_mode="exact", **common)
+    serving = tp.SteerableImageCanonicalization(
+        net, warp_mode="fast", compute_dtype=torch.bfloat16,
+        output_dtype="compute", **common)
+    return {"continuous_exact": (exact.eval(), resnet),
+            "continuous_serving": (serving.eval(), resnet_bf16)}
+
+
 def smooth_images(gen):
     """Low-frequency images plus noise: oriented content, so the random
     energy network separates its top two elements clearly (white noise
@@ -212,10 +456,19 @@ def smooth_images(gen):
         B, IMAGE, IMAGE, 3, generator=gen)
 
 
-def run_path(canon, resnet, x, y):
+def lowfreq_images(gen, C=3):
+    """Smooth images in [0, 1] (no white noise): a frame that moves by a
+    small angle moves pixel values by a small amount."""
+    lo = torch.rand(B, C, 6, 6, generator=gen)
+    up = torch.nn.functional.interpolate(lo, size=(IMAGE, IMAGE), mode="bicubic",
+                                         align_corners=False)
+    return up.clamp(0.0, 1.0).permute(0, 2, 3, 1).contiguous()
+
+
+def run_path(canon, resnet, x, y, **invert_kw):
     x_c, info = canon.canonicalize(x)
     logits = resnet(x_c)
-    y_inv = canon.invert_canonicalization(info, y)
+    y_inv = canon.invert_canonicalization(info, y, **invert_kw)
     return x_c, info, logits, y_inv
 
 
@@ -243,6 +496,44 @@ def check_against_cpu(canon, resnet, x, y, x_c, info, logits, y_inv, m=8):
             "max_rel_logit": d_log}
 
 
+def check_continuous_against_cpu(canon, resnet, x, y, x_c, info, logits, y_inv,
+                                 m=8):
+    """The first m samples against the port's CPU run (plain kernels).
+
+    fp32 bars: matrix rep 1e-5; canonical images and inverted maps 1e-4
+    (images in [0, 1]: a 1e-6 change of the frame moves a sample point by
+    at most 2e-4 px at the corner); logits 1e-3 of the largest (cuDNN
+    against the CPU's convolutions). bf16 bars (the steerable network's
+    first convolution runs in bf16, so the frames move by up to a few
+    1e-3 rad): matrix rep 1e-2; canonical images and inverted maps within
+    2e-2 at 99% of their values and all within 0.1; logits 5e-2 of the
+    largest."""
+    canon_cpu = copy.deepcopy(canon).to("cpu")
+    resnet_cpu = copy.deepcopy(resnet).to("cpu")
+    xc_r, info_r, logits_r, yi_r = run_path(canon_cpu, resnet_cpu, x[:m].cpu(),
+                                            y[:m].cpu(), induced_rep_type="scalar")
+    d_rep = (info.matrix_rep[:m].cpu() - info_r.matrix_rep).abs().max().item()
+    e_img = (x_c[:m].cpu().float() - xc_r.float()).abs()
+    e_inv = (y_inv[:m].cpu().float() - yi_r.float()).abs()
+    d_log = ((logits[:m].cpu().float() - logits_r.float()).abs().max()
+             / logits_r.float().abs().max()).item()
+    out = {"samples": m, "max_abs_rep": d_rep,
+           "max_abs_image": e_img.max().item(),
+           "q99_abs_image": torch.quantile(e_img.flatten()[::7], 0.99).item(),
+           "max_abs_invert": e_inv.max().item(),
+           "q99_abs_invert": torch.quantile(e_inv.flatten()[::7], 0.99).item(),
+           "max_rel_logit": d_log}
+    if x_c.dtype == torch.bfloat16:
+        ok = (d_rep < 1e-2 and out["q99_abs_image"] < 2e-2
+              and out["q99_abs_invert"] < 2e-2 and out["max_abs_image"] < 0.1
+              and out["max_abs_invert"] < 0.1 and d_log < 5e-2)
+    else:
+        ok = (d_rep < 1e-5 and out["max_abs_image"] < 1e-4
+              and out["max_abs_invert"] < 1e-4 and d_log < 1e-3)
+    assert ok, out
+    return out
+
+
 def check_equivariance(canon, x, x_c, info):
     """canonicalize(rot90(x)) selects element + 2 (mod 8) and gives the same
     canonical image."""
@@ -255,6 +546,21 @@ def check_equivariance(canon, x, x_c, info):
     err = (x_c_rot[ok] - x_c[ok]).abs().max().item()
     assert share >= 0.99 and err < 1e-4, (share, err)
     return {"share_shifted": share, "max_abs_image": err}
+
+
+def check_continuous_equivariance(canon, x, info):
+    """A quarter turn of the input quarter-turns the frame:
+    matrix_rep(rot90(x)) == matrix_rep(x) @ Q^T, Q the +90-degree rotation
+    (rot90 turns the image counter-clockwise as displayed; the network's
+    angles are y-up), within 1e-4 for at least 99% of the batch."""
+    x_rot = torch.rot90(x, 1, dims=(1, 2)).contiguous()
+    _, info_rot = canon.canonicalize(x_rot)
+    q_t = torch.tensor([[0.0, 1.0], [-1.0, 0.0]], device=x.device)
+    want = info.matrix_rep @ q_t
+    err = (info_rot.matrix_rep - want).abs().amax(dim=(1, 2))
+    share = (err < 1e-4).float().mean().item()
+    assert share >= 0.99, (share, err.max().item())
+    return {"share_within_1e-4": share, "max_abs_rep": err.max().item()}
 
 
 def device_profile(fn, top: int = 25):
@@ -282,6 +588,32 @@ def device_profile(fn, top: int = 25):
                           sum(r[2] for r in rows)]]
 
 
+def time_preset(preset, canon, resnet, x, yy, **invert_kw):
+    """End-to-end times of one preset and its device profile."""
+    t_bare = cuda_ms(lambda: resnet(x), reps=5)
+    t_wrapped = cuda_ms(lambda: resnet(canon.canonicalize(x)[0]), reps=5)
+    t_canon = cuda_ms(lambda: canon.canonicalize(x), reps=5)
+
+    def canon_invert():
+        _, inf = canon.canonicalize(x)
+        canon.invert_canonicalization(inf, yy, **invert_kw)
+
+    t_ci = cuda_ms(canon_invert, reps=5)
+    times = {
+        "resnet50_ms": t_bare, "canon_resnet50_ms": t_wrapped,
+        "canonicalize_ms": t_canon, "canon_invert_ms": t_ci,
+        "canon_invert_img_per_s": B / t_ci * 1e3,
+        "overhead_pct": (t_wrapped - t_bare) / t_bare * 100.0,
+    }
+    log(f"{preset}: {json.dumps(times)}")
+    prof = {"canon_invert": device_profile(canon_invert),
+            "resnet50": device_profile(lambda: resnet(x))}
+    times["profile"] = prof
+    for part, rows in prof.items():
+        log(f"{preset} profile {part}: {json.dumps(rows[:12] + rows[-1:])}")
+    return times
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -292,7 +624,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import equiadapt_tpu_torch as tp
     from equiadapt_tpu_torch.ops.kernels import _build
+    from equiadapt_tpu_torch.ops.kernels import bilinear_warp as bw
     from equiadapt_tpu_torch.ops.kernels import select_warp as sw
+    from equiadapt_tpu_torch.ops.kernels import shear_rotate as sr
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -300,10 +634,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    bw = bandwidth_for(name)
+    bwidth = bandwidth_for(name)
     log(f"device: {name}; nvidia-smi: {smi}; bandwidth used for bounds "
-        f"{bw / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    results = {"device": name, "nvidia_smi": smi, "bandwidth": bw}
+        f"{bwidth / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    results = {"device": name, "nvidia_smi": smi, "bandwidth": bwidth}
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -314,6 +648,7 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     check_kernels(sw, gen)
+    check_continuous_kernels(sr, bw, gen)
 
     presets = build_presets(tp)
     x = smooth_images(gen).to(DEVICE)
@@ -341,34 +676,60 @@ def main() -> int:
                 checks["rot90"] = check_equivariance(canon, x, x_c, info)
                 log(f"exact: vs CPU {checks['cpu']}; rot90 {checks['rot90']}")
             del out, x_c, info, logits, y_inv
+            times[preset] = time_preset(preset, canon, resnet, x, ys[preset])
 
-            yy = ys[preset]
-            t_bare = cuda_ms(lambda: resnet(x), reps=5)
-            t_wrapped = cuda_ms(lambda: resnet(canon.canonicalize(x)[0]), reps=5)
-            t_canon = cuda_ms(lambda: canon.canonicalize(x), reps=5)
-
-            def canon_invert():
-                _, inf = canon.canonicalize(x)
-                canon.invert_canonicalization(inf, yy)
-
-            t_ci = cuda_ms(canon_invert, reps=5)
-            times[preset] = {
-                "resnet50_ms": t_bare, "canon_resnet50_ms": t_wrapped,
-                "canonicalize_ms": t_canon, "canon_invert_ms": t_ci,
-                "canon_invert_img_per_s": B / t_ci * 1e3,
-                "overhead_pct": (t_wrapped - t_bare) / t_bare * 100.0,
-            }
-            log(f"{preset}: {json.dumps(times[preset])}")
-            prof = {"canon_invert": device_profile(canon_invert),
-                    "resnet50": device_profile(lambda: resnet(x))}
-            times[preset]["profile"] = prof
-            for part, rows in prof.items():
-                log(f"{preset} profile {part}: {json.dumps(rows[:12] + rows[-1:])}")
+        cont = build_continuous_presets(tp, presets["exact"][1],
+                                        presets["serving"][1])
+        xs = lowfreq_images(gen).to(DEVICE)
+        y_cont = lowfreq_images(gen, FEATURE_CH).to(DEVICE)
+        ys_cont = {"continuous_exact": y_cont,
+                   "continuous_serving": y_cont.to(torch.bfloat16)}
+        for preset, (canon, resnet) in cont.items():
+            yy = ys_cont[preset]
+            for mod in (sw, sr, bw):
+                mod.reset_launches()
+            out = run_path(canon, resnet, xs, yy, induced_rep_type="scalar")
+            sync()
+            counts = {**sw.launches, **sr.launches, **bw.launches}
+            launches.update({f"{preset}:{k}": v for k, v in counts.items()})
+            log(f"{preset}: launches {counts}")
+            for key in CONT_PRESET_KERNELS[preset]:
+                assert counts.get(key, 0) > 0, (preset, key, counts)
+            x_c, info, logits, y_inv = out
+            assert x_c.shape == xs.shape and logits.shape == (B, 10)
+            assert y_inv.shape == yy.shape
+            assert x_c.dtype == (torch.float32 if preset == "continuous_exact"
+                                 else torch.bfloat16)
+            for t in (x_c, logits, y_inv, info.matrix_rep):
+                assert bool(torch.isfinite(t.float()).all()), preset
+            checks[f"{preset}:cpu"] = check_continuous_against_cpu(
+                canon, resnet, xs, yy, *out)
+            log(f"{preset}: vs CPU {checks[f'{preset}:cpu']}")
+            if preset == "continuous_exact":
+                checks[f"{preset}:rot90"] = check_continuous_equivariance(
+                    canon, xs, info)
+                log(f"{preset}: rot90 {checks[f'{preset}:rot90']}")
+            del out, x_c, info, logits, y_inv
+            times[preset] = time_preset(preset, canon, resnet, xs, yy,
+                                        induced_rep_type="scalar")
+        del xs, y_cont, ys_cont
 
         kernels = []
+        gen_dev = torch.Generator(device=DEVICE).manual_seed(3)
         for dtype in (torch.float32, torch.bfloat16):
             for kname in TPU_KERNEL:
-                kernels.append(kernel_entry(sw, kname, dtype, gen, bw, launches))
+                kernels.append(kernel_entry(sw, kname, dtype, gen, bwidth,
+                                            launches))
+            kernels.append(kernel_entry(sw, "select_planes", dtype, gen, bwidth,
+                                        launches, one_source=True))
+        for dtype in (torch.float32, torch.bfloat16):
+            for kname in CONT_KERNEL:
+                tag = str(dtype).removeprefix("torch.")
+                main_launches = {
+                    f"{kname}/{tag}": sum(v for k, v in launches.items()
+                                          if k.endswith(f":{kname}/{tag}"))}
+                kernels.append(continuous_entry(sr, bw, kname, dtype, gen_dev,
+                                                bwidth, main_launches))
     results.update(launches=launches, checks=checks, times=times,
                    kernels=kernels)
     if args.out:

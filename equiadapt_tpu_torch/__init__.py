@@ -8,13 +8,19 @@ a hand-written CUDA kernel under `csrc/`, built with nvcc at first use.
 Modules default to `device="cuda"`; pass `device="cpu"` explicitly to run the
 plain PyTorch versions of the kernels on the CPU.
 
-This first slice ports the discrete (C_n / D_n) eval path: GCNN energy ->
-hard select -> rotate-select (kernel K1) -> prediction network ->
-regular-rep invert (kernel K2).
+Ported so far, eval only:
+* the discrete (C_n / D_n) path: GCNN energy -> hard select ->
+  rotate-select (kernel K1) -> prediction network -> regular-rep invert
+  (kernel K2);
+* the continuous (SO(2) / O(2)) steerable path: steerable network ->
+  rotation matrix -> warp, exact (kernel K7) or fast (kernels K5 + K6) ->
+  prediction network -> scalar invert (the same warp kernels).
 """
 
 from equiadapt_tpu_torch.common import (
     BaseCanonicalization,
+    ContinuousCanonicalizationInfo,
+    ContinuousGroupElement,
     DiscreteCanonicalizationInfo,
     DiscreteGroupElement,
     IdentityCanonicalization,
@@ -23,9 +29,12 @@ from equiadapt_tpu_torch.common import (
     prior_regularization_loss,
 )
 from equiadapt_tpu_torch.images import (
+    ContinuousGroupImageCanonicalization,
     DiscreteGroupImageCanonicalization,
     EquivariantNetwork,
     GroupEquivariantImageCanonicalization,
+    SteerableImageCanonicalization,
+    SteerableNetwork,
 )
 from equiadapt_tpu_torch.models import ResNet18, ResNet50
 from equiadapt_tpu_torch.ops.group_action import get_action_on_image_features
@@ -36,12 +45,17 @@ __all__ = [
     "IdentityCanonicalization",
     "DiscreteGroupElement",
     "DiscreteCanonicalizationInfo",
+    "ContinuousGroupElement",
+    "ContinuousCanonicalizationInfo",
     "IdentityCanonicalizationInfo",
     "prior_regularization_loss",
     "identity_metric",
     "DiscreteGroupImageCanonicalization",
     "GroupEquivariantImageCanonicalization",
     "EquivariantNetwork",
+    "ContinuousGroupImageCanonicalization",
+    "SteerableImageCanonicalization",
+    "SteerableNetwork",
     "ResNet18",
     "ResNet50",
     "get_action_on_image_features",

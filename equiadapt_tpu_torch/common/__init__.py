@@ -1,15 +1,24 @@
-"""Canonicalization bases, infos and selectors."""
+"""Canonicalization bases, infos, selectors and frame math."""
 
 from equiadapt_tpu_torch.common.base import (
     BaseCanonicalization,
     IdentityCanonicalization,
 )
 from equiadapt_tpu_torch.common.info import (
+    ContinuousCanonicalizationInfo,
+    ContinuousGroupElement,
     DiscreteCanonicalizationInfo,
     DiscreteGroupElement,
     IdentityCanonicalizationInfo,
     identity_metric,
     prior_regularization_loss,
+)
+from equiadapt_tpu_torch.common.math import (
+    det_2x2,
+    gram_schmidt,
+    gram_schmidt_2d,
+    modified_gram_schmidt,
+    rotmat_2d_from_vector,
 )
 from equiadapt_tpu_torch.common.selector import (
     gumbel_softmax_onehot,
@@ -21,6 +30,8 @@ from equiadapt_tpu_torch.common.selector import (
 __all__ = [
     "BaseCanonicalization",
     "IdentityCanonicalization",
+    "ContinuousCanonicalizationInfo",
+    "ContinuousGroupElement",
     "DiscreteCanonicalizationInfo",
     "DiscreteGroupElement",
     "IdentityCanonicalizationInfo",
@@ -30,4 +41,9 @@ __all__ = [
     "hard_onehot",
     "select_onehot",
     "straight_through_onehot",
+    "det_2x2",
+    "gram_schmidt",
+    "gram_schmidt_2d",
+    "modified_gram_schmidt",
+    "rotmat_2d_from_vector",
 ]

@@ -1,8 +1,7 @@
 """Canonicalization infos: dataclasses of tensors.
 
-Counterpart of `equiadapt_tpu/common/info.py` (discrete and identity
-infos; the continuous infos come with the continuous slice). Every
-`canonicalize` returns its info, and `invert_canonicalization`,
+Counterpart of `equiadapt_tpu/common/info.py`. Every `canonicalize`
+returns its info, and `invert_canonicalization`,
 `prior_regularization_loss` and `identity_metric` read it.
 """
 
@@ -19,6 +18,8 @@ Tensor = torch.Tensor
 __all__ = [
     "DiscreteGroupElement",
     "DiscreteCanonicalizationInfo",
+    "ContinuousGroupElement",
+    "ContinuousCanonicalizationInfo",
     "IdentityCanonicalizationInfo",
     "prior_regularization_loss",
     "identity_metric",
@@ -60,28 +61,69 @@ class DiscreteCanonicalizationInfo:
 
 
 @dataclass
+class ContinuousGroupElement:
+    """Selected element of a continuous group (SO(2), O(2), SO(3), SE(3)).
+
+    rotation: (B, d, d) rotation matrices.
+    reflection: (B,) indicator in [0, 1]; None outside O(2).
+    translation: (B, d); None outside SE(n) / E(n).
+    """
+
+    rotation: Tensor
+    reflection: Optional[Tensor] = None
+    translation: Optional[Tensor] = None
+
+
+@dataclass
+class ContinuousCanonicalizationInfo:
+    """Everything one continuous canonicalize produces.
+
+    matrix_rep: (B, d, d) matrix of the element (prior loss, identity
+        metric).
+    element: the element applied.
+    extras: auxiliary tensors of variant-specific losses.
+    """
+
+    matrix_rep: Tensor
+    element: ContinuousGroupElement
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
 class IdentityCanonicalizationInfo:
     """No-op canonicalization."""
 
 
+def _mse_to_identity(matrix_rep: Tensor) -> Tensor:
+    eye = torch.eye(matrix_rep.shape[-1], dtype=matrix_rep.dtype,
+                    device=matrix_rep.device)
+    return torch.mean((matrix_rep - eye) ** 2)
+
+
 def prior_regularization_loss(info) -> Tensor:
     """Cross-entropy of the raw activations against the identity element
-    (class 0) for a discrete info; 0 for the identity."""
+    (class 0) for a discrete info; MSE of the matrix rep against the
+    identity matrix for a continuous one; 0 for the identity."""
     if isinstance(info, IdentityCanonicalizationInfo):
         return torch.tensor(0.0)
     if isinstance(info, DiscreteCanonicalizationInfo):
         logp = F.log_softmax(info.group_activations, dim=-1)
         return -torch.mean(logp[..., 0])
+    if isinstance(info, ContinuousCanonicalizationInfo):
+        return _mse_to_identity(info.matrix_rep)
     raise TypeError(f"Unknown canonicalization info: {type(info)}")
 
 
 def identity_metric(info) -> Tensor:
-    """Fraction of the batch whose argmax is the identity element; 1 for
-    the identity."""
+    """Fraction of the batch whose argmax is the identity element
+    (discrete); 1 - MSE of the matrix rep against the identity matrix
+    (continuous); 1 for the identity."""
     if isinstance(info, IdentityCanonicalizationInfo):
         return torch.tensor(1.0)
     if isinstance(info, DiscreteCanonicalizationInfo):
         return torch.mean(
             (torch.argmax(info.group_activations, dim=-1) == 0).float()
         )
+    if isinstance(info, ContinuousCanonicalizationInfo):
+        return 1.0 - _mse_to_identity(info.matrix_rep)
     raise TypeError(f"Unknown canonicalization info: {type(info)}")

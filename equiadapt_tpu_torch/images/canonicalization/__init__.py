@@ -1,11 +1,17 @@
-"""Discrete-group image canonicalizers."""
+"""Discrete- and continuous-group image canonicalizers."""
 
+from equiadapt_tpu_torch.images.canonicalization.continuous_group import (
+    ContinuousGroupImageCanonicalization,
+    SteerableImageCanonicalization,
+)
 from equiadapt_tpu_torch.images.canonicalization.discrete_group import (
     DiscreteGroupImageCanonicalization,
     GroupEquivariantImageCanonicalization,
 )
 
 __all__ = [
+    "ContinuousGroupImageCanonicalization",
+    "SteerableImageCanonicalization",
     "DiscreteGroupImageCanonicalization",
     "GroupEquivariantImageCanonicalization",
 ]

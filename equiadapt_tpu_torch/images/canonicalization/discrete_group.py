@@ -22,7 +22,6 @@ counterpart here.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -36,7 +35,7 @@ from equiadapt_tpu_torch.common.info import (
 from equiadapt_tpu_torch.common.selector import select_onehot
 from equiadapt_tpu_torch.ops.group_action import get_action_on_image_features
 from equiadapt_tpu_torch.ops.kernels.select_warp import rotate_select
-from equiadapt_tpu_torch.ops.warp import center_crop, group_angles, hflip, resize
+from equiadapt_tpu_torch.ops.warp import crop_and_resize, group_angles, hflip
 
 Tensor = torch.Tensor
 
@@ -102,16 +101,8 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         self, x: Tensor
     ) -> Tensor:
         """Centre-crop by input_crop_ratio, then resize (NHWC)."""
-        if self.is_grayscale:
-            return x
-        H, W = self.in_shape[0], self.in_shape[1]
-        ch = math.ceil(H * self.input_crop_ratio)
-        cw = math.ceil(W * self.input_crop_ratio)
-        if (ch, cw) != (H, W):
-            x = center_crop(x, (ch, cw))
-        if self.resize_shape is not None:
-            x = resize(x, (self.resize_shape, self.resize_shape))
-        return x
+        return crop_and_resize(x, self.in_shape, self.input_crop_ratio,
+                               self.resize_shape)
 
     def get_group_activations(self, x: Tensor) -> Tensor:
         """Subclass hook: (B, |G|) activations."""

@@ -1,4 +1,4 @@
-"""Group-equivariant energy networks and their layers."""
+"""Group-equivariant and steerable canonicalization networks and their layers."""
 
 from equiadapt_tpu_torch.images.networks.equivariant import (
     EquivariantNetwork,
@@ -11,6 +11,12 @@ from equiadapt_tpu_torch.images.networks.group_conv import (
     RotoReflectionEquivariantConv,
     RotoReflectionEquivariantConvLift,
 )
+from equiadapt_tpu_torch.images.networks.steerable import (
+    NormBatchNorm,
+    NormNonlinearity,
+    SteerableConv,
+    SteerableNetwork,
+)
 
 __all__ = [
     "EquivariantNetwork",
@@ -20,4 +26,8 @@ __all__ = [
     "RotationEquivariantConvLift",
     "RotoReflectionEquivariantConv",
     "RotoReflectionEquivariantConvLift",
+    "NormBatchNorm",
+    "NormNonlinearity",
+    "SteerableConv",
+    "SteerableNetwork",
 ]

@@ -1,0 +1,263 @@
+"""SO(2)-steerable CNN from circular-harmonic filter bases (eval path).
+
+Counterpart of `equiadapt_tpu/images/networks/steerable.py`. A field of
+rotation order m is one real channel (m = 0) or a (re, im) channel pair.
+A kernel from order m_in to order m_out is rho(r) e^{i (m_out - m_in) phi},
+rho expanded in Gaussian rings with one learnable complex coefficient per
+(out field, in field, ring); the parameters keep the Flax names and shapes
+(`w_{fo}_{fi}`, (J, 2)), so weights carry across as a copy.
+
+The real kernel is assembled by one matrix product of the concatenated
+coefficients with a host-built assembly matrix (float32 entries of the
+float64-built ring basis, placed and signed as the JAX module's block
+adds), then one `F.conv2d` runs on NCHW with OIHW weights. Takes NHWC like
+the JAX module, runs NCHW inside.
+
+Dtypes follow the JAX module: a convolution runs in its input's dtype
+(fp32 parameters cast), and `NormBatchNorm` multiplies by its fp32 scale,
+which promotes a bf16 input to fp32. So with bf16 input only the first
+convolution runs in bf16, and the output vectors are fp32.
+
+Training (`NormBatchNorm` batch statistics) is not ported and raises.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tensor = torch.Tensor
+_EPS = 1e-5  # NormBatchNorm's epsilon, as in the Flax module
+
+__all__ = ["SteerableConv", "NormNonlinearity", "NormBatchNorm", "SteerableNetwork"]
+
+
+def _field_channels(orders: Sequence[int]) -> int:
+    return sum(1 if m == 0 else 2 for m in orders)
+
+
+@functools.lru_cache(maxsize=None)
+def _harmonic_basis(kernel_size: int, dm: int) -> np.ndarray:
+    """(J, K, K, 2) basis of angular order difference dm: [cos, sin](dm phi)
+    times ring j, L2-normalized per ring; rings at radii 0..K//2 with
+    sigma 0.6, the r = 0 ring left out for dm != 0. Built in float64,
+    returned as float32."""
+    K = kernel_size
+    c = (K - 1) / 2.0
+    ys, xs = np.mgrid[0:K, 0:K].astype(np.float64)
+    x = xs - c
+    y = ys - c
+    r = np.sqrt(x * x + y * y)
+    # math-convention angle (y up), so order-1 outputs co-rotate with the
+    # canonicalizer's image rotation
+    phi = np.arctan2(-y, x)
+    sigma = 0.6
+    max_r = K // 2
+    rings = []
+    for j in range(0 if dm == 0 else 1, max_r + 1):
+        radial = np.exp(-((r - j) ** 2) / (2 * sigma**2))
+        radial[r > max_r + 0.5] = 0.0
+        if dm != 0:
+            radial[r == 0.0] = 0.0  # no phase at the centre
+        re = radial * np.cos(dm * phi)
+        im = radial * np.sin(dm * phi)
+        norm = np.sqrt((re**2 + im**2).sum()) + 1e-12
+        rings.append(np.stack([re / norm, im / norm], axis=-1))
+    return np.asarray(rings, dtype=np.float32)
+
+
+def _coefficient_names(in_orders, out_orders) -> List[Tuple[str, int, int]]:
+    """(name, fi, fo) of each coefficient, in the Flax creation order."""
+    return [(f"w_{fo}_{fi}", fi, fo)
+            for fi in range(len(in_orders)) for fo in range(len(out_orders))]
+
+
+@functools.lru_cache(maxsize=None)
+def _assembly_matrix(in_orders: Tuple[int, ...], out_orders: Tuple[int, ...],
+                     kernel_size: int) -> np.ndarray:
+    """(P, Cout * Cin * K * K) float32 A with vec_OIHW(kernel) = theta @ A,
+    theta the concatenated (J, 2) coefficients in `_coefficient_names` order.
+
+    Per block, with (a_j, b_j) the coefficient and (B_re, B_im) the basis,
+    k_re = sum_j a_j B_re - b_j B_im and k_im = sum_j a_j B_im + b_j B_re,
+    placed as the real form of the complex product k * f:
+    (0 -> 0) k_re; (0 -> m) [k_re, k_im]; (m -> 0) [k_re, -k_im];
+    (m -> m') [[k_re, k_im], [-k_im, k_re]] over (in re/im, out re/im).
+    """
+    K = kernel_size
+    cin_of, ci = [], 0
+    for m in in_orders:
+        cin_of.append(ci)
+        ci += 1 if m == 0 else 2
+    cout_of, co = [], 0
+    for m in out_orders:
+        cout_of.append(co)
+        co += 1 if m == 0 else 2
+    shape = (K, K, _field_channels(in_orders), _field_channels(out_orders))
+    rows = []
+    for _, fi, fo in _coefficient_names(in_orders, out_orders):
+        mi, mo = in_orders[fi], out_orders[fo]
+        basis = _harmonic_basis(K, mo - mi)  # (J, K, K, 2)
+        ci, co = cin_of[fi], cout_of[fo]
+        for j in range(basis.shape[0]):
+            b_re, b_im = basis[j, ..., 0], basis[j, ..., 1]
+            # (k_re, k_im) contributed by a_j and by b_j
+            for k_re, k_im in ((b_re, b_im), (-b_im, b_re)):
+                hwio = np.zeros(shape, np.float32)
+                hwio[:, :, ci, co] = k_re
+                if mi == 0 and mo != 0:
+                    hwio[:, :, ci, co + 1] = k_im
+                elif mi != 0 and mo == 0:
+                    hwio[:, :, ci + 1, co] = -k_im
+                elif mi != 0:
+                    hwio[:, :, ci + 1, co] = -k_im
+                    hwio[:, :, ci, co + 1] = k_im
+                    hwio[:, :, ci + 1, co + 1] = k_re
+                rows.append(hwio.transpose(3, 2, 0, 1).reshape(-1))
+    return np.stack(rows)
+
+
+class SteerableConv(nn.Module):
+    """Equivariant convolution between collections of SO(2) fields, on
+    NCHW tensors. Parameters `w_{fo}_{fi}` (J, 2) as in Flax; the OIHW
+    kernel is `theta @ assembly`."""
+
+    def __init__(self, in_orders: Sequence[int], out_orders: Sequence[int],
+                 kernel_size: int, padding: int = 0, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_orders = tuple(in_orders)
+        self.out_orders = tuple(out_orders)
+        self.kernel_size = kernel_size
+        self.padding = padding
+        self._names = []
+        for name, fi, fo in _coefficient_names(self.in_orders, self.out_orders):
+            J = _harmonic_basis(kernel_size,
+                                self.out_orders[fo] - self.in_orders[fi]).shape[0]
+            p = nn.Parameter(torch.empty(J, 2, device=device))
+            std = 1.0 / math.sqrt(J * max(1, len(self.in_orders)))
+            nn.init.normal_(p, 0.0, std, generator=generator)
+            self.register_parameter(name, p)
+            self._names.append(name)
+        A = _assembly_matrix(self.in_orders, self.out_orders, kernel_size)
+        self.register_buffer("assembly", torch.from_numpy(A).to(device),
+                             persistent=False)
+
+    def kernel(self) -> Tensor:
+        """The fp32 OIHW kernel."""
+        theta = torch.cat([getattr(self, n).reshape(-1) for n in self._names])
+        K = self.kernel_size
+        return (theta @ self.assembly).reshape(
+            _field_channels(self.out_orders), _field_channels(self.in_orders), K, K)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.conv2d(x, self.kernel().to(x.dtype), padding=self.padding)
+
+
+class NormNonlinearity(nn.Module):
+    """Phase-preserving norm-ReLU, relu(|z| + b) z / |z|, for m != 0
+    fields (parameters `bias_{fi}` (1,)); tanh-approximate GELU, which is
+    Flax's `nn.gelu`, for m = 0 fields. NCHW."""
+
+    def __init__(self, orders: Sequence[int], device="cuda"):
+        super().__init__()
+        self.orders = tuple(orders)
+        scalar, re, im, self._bias_names = [], [], [], []
+        ci = 0
+        for fi, m in enumerate(self.orders):
+            if m == 0:
+                scalar.append(ci)
+                ci += 1
+            else:
+                re.append(ci)
+                im.append(ci + 1)
+                name = f"bias_{fi}"
+                self.register_parameter(
+                    name, nn.Parameter(torch.zeros(1, device=device)))
+                self._bias_names.append(name)
+                ci += 2
+        self._scalar, self._re, self._im = scalar, re, im
+        # channel c of cat([scalar, re, im]) back to its place
+        self._order = list(np.argsort(scalar + re + im))
+
+    def forward(self, x: Tensor) -> Tensor:
+        parts = [F.gelu(x[:, self._scalar], approximate="tanh")]
+        if self._re:
+            z_re, z_im = x[:, self._re], x[:, self._im]
+            norm = torch.sqrt(z_re * z_re + z_im * z_im + 1e-8)
+            b = torch.cat([getattr(self, n) for n in self._bias_names])
+            gate = torch.relu(norm + b[None, :, None, None])
+            parts += [gate * z_re / norm, gate * z_im / norm]
+        return torch.cat(parts, dim=1)[:, self._order]
+
+
+class NormBatchNorm(nn.Module):
+    """Each field times `scale` over the running RMS of its norm:
+    z * scale / sqrt(norm_sq + eps), `scale` (params) and `norm_sq`
+    (batch_stats) of shape (fields,). Not a `_BatchNorm`: its leaves are
+    its own. Eval only. NCHW."""
+
+    def __init__(self, orders: Sequence[int], device="cuda"):
+        super().__init__()
+        self.orders = tuple(orders)
+        n = len(self.orders)
+        self.scale = nn.Parameter(torch.ones(n, device=device))
+        self.register_buffer("norm_sq", torch.ones(n, device=device))
+        field = [fi for fi, m in enumerate(self.orders)
+                 for _ in range(1 if m == 0 else 2)]
+        self.register_buffer("_field", torch.tensor(field, device=device),
+                             persistent=False)
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "NormBatchNorm training (batch statistics) is not ported yet; "
+                "call .eval()"
+            )
+        shape = (1, -1, 1, 1)
+        scale = self.scale[self._field].reshape(shape)
+        denom = torch.sqrt(self.norm_sq[self._field] + _EPS).reshape(shape)
+        return x * scale / denom
+
+
+class SteerableNetwork(nn.Module):
+    """NHWC images -> (B, num_vectors, 2) frame vectors: trivial input
+    fields, `num_layers` blocks of SteerableConv -> NormBatchNorm ->
+    NormNonlinearity over `out_channels` fields of each order 0, 1, 2, then
+    a SteerableConv to `num_vectors` order-1 fields, averaged over space.
+    SO(2) only: the JAX module's `group_type` has the one value "rotation",
+    and its `num_rotations` is unused, so neither is an argument here."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 9,
+                 num_layers: int = 1, num_vectors: int = 2,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_vectors = num_vectors
+        hidden = (0,) * out_channels + (1,) * out_channels + (2,) * out_channels
+        cur = (0,) * in_channels
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"SteerableConv_{i}", SteerableConv(
+                cur, hidden, kernel_size, device=device, generator=generator))
+            self.add_module(f"NormBatchNorm_{i}", NormBatchNorm(hidden, device=device))
+            self.add_module(f"NormNonlinearity_{i}",
+                            NormNonlinearity(hidden, device=device))
+            cur = hidden
+        self.add_module(f"SteerableConv_{num_layers}", SteerableConv(
+            cur, (1,) * num_vectors, kernel_size, device=device, generator=generator))
+
+    def forward(self, x: Tensor) -> Tensor:
+        h = x.permute(0, 3, 1, 2)
+        for i in range(self.num_layers):
+            h = getattr(self, f"SteerableConv_{i}")(h)
+            h = getattr(self, f"NormBatchNorm_{i}")(h)
+            h = getattr(self, f"NormNonlinearity_{i}")(h)
+        h = getattr(self, f"SteerableConv_{self.num_layers}")(h)
+        v = h.mean(dim=(2, 3))
+        return v.reshape(v.shape[0], self.num_vectors, 2)

@@ -8,7 +8,8 @@ runs at first use, in the process that needs the kernel; `build_all` starts
 one nvcc per source at once, for a caller that wants every kernel ready.
 
 Nothing here runs when a module is imported, and nothing here is reached for
-CPU tensors: the wrappers take their plain PyTorch versions there.
+CPU tensors: `route` sends the wrappers to their plain PyTorch versions
+there.
 """
 
 from __future__ import annotations
@@ -20,16 +21,21 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("select_warp",)
+SOURCES = ("select_warp", "shear_rotate", "bilinear_warp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# dtype codes of the C interfaces (every csrc/*.cu): 0 = float32, 1 = bfloat16
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -92,3 +98,17 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]
+
+
+def route(tensors: Sequence, kernels: str) -> str:
+    """"cpu" (plain version) or "cuda" (kernel) for a wrapper's tensors;
+    anything else (another device, or devices mixed) raises."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return "cpu"
+    if types == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return "cuda"
+    raise RuntimeError(
+        f"{kernels} take CUDA tensors on one device (or CPU tensors, which "
+        f"take the plain version); got {sorted(str(t.device) for t in tensors)}"
+    )

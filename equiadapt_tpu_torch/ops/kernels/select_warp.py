@@ -43,7 +43,6 @@ __all__ = [
 ]
 
 MAX_SOURCES = 4
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches per wrapper and dtype, e.g. launches["select_planes/bfloat16"]
 launches: Dict[str, int] = {}
@@ -83,19 +82,6 @@ def _lib() -> ctypes.CDLL:
                        ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     return lib
-
-
-def _route(tensors: Sequence[Tensor]) -> str:
-    """"cpu" (plain version) or "cuda" (kernel); anything else raises."""
-    types = {t.device.type for t in tensors}
-    if types == {"cpu"}:
-        return "cpu"
-    if types == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return "cuda"
-    raise RuntimeError(
-        f"select kernels take CUDA tensors on one device (or CPU tensors, "
-        f"which take the plain version); got {sorted(str(t.device) for t in tensors)}"
-    )
 
 
 def _check(sources: Sequence[Tensor], idx: Sequence[Tensor]) -> None:
@@ -147,7 +133,7 @@ def select_planes_plain(
 
 def _launch(name: str, sources, src_idx, k_idx, shift, refl, G, n) -> Tensor:
     s0 = sources[0]
-    if s0.dtype not in _DTYPE_CODES:
+    if s0.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"select kernels take float32 or bfloat16, got {s0.dtype}")
     B, C, N, _ = s0.shape
     if any(not s.is_contiguous() for s in sources):
@@ -160,7 +146,7 @@ def _launch(name: str, sources, src_idx, k_idx, shift, refl, G, n) -> Tensor:
     ptrs = [s.data_ptr() for s in sources]
     ptrs += [ptrs[0]] * (MAX_SOURCES - len(ptrs))
     err = _lib().eqt_select_warp(
-        _DTYPE_CODES[s0.dtype], *ptrs, len(sources), out.data_ptr(),
+        _build.DTYPE_CODES[s0.dtype], *ptrs, len(sources), out.data_ptr(),
         *[t.data_ptr() if t is not None else None for t in idx],
         B, C, N, G, n, torch.cuda.current_stream(s0.device).cuda_stream,
     )
@@ -176,7 +162,7 @@ def select_planes(sources: Sequence[Tensor], src_idx: Tensor,
     """K1: out[b, c] = rot90^{k[b]}(sources[src[b]][b, c]), NCHW."""
     sources = list(sources)
     _check(sources, (src_idx, k_idx))
-    if _route(sources + [src_idx, k_idx]) == "cpu":
+    if _build.route(sources + [src_idx, k_idx], "select kernels") == "cpu":
         return select_planes_plain(sources, src_idx, k_idx)
     return _launch("select_planes", sources, src_idx, k_idx, None, None, 1, 1)
 
@@ -202,7 +188,7 @@ def select_planes_rolled(
         raise ValueError(f"regular rep: C={C} must divide by |G|={G} in (n, 2n)")
     if (refl is not None) != (G == 2 * n):
         raise ValueError("refl is given exactly for D_n (num_group == 2 n)")
-    if _route(sources + [src_idx, k_idx] + extra) == "cpu":
+    if _build.route(sources + [src_idx, k_idx] + extra, "select kernels") == "cpu":
         return select_planes_plain(sources, src_idx, k_idx, shift, refl, G, n)
     return _launch("select_planes_rolled", sources, src_idx, k_idx, shift,
                    refl, G, n)

@@ -15,13 +15,17 @@ warps take and give (B, C, H, W), the layout the select kernels read.
 * `rotate_select_fast` and `rotate_discrete` are the JAX package's pure
   formulations of the hard select and of the one-hot blend. The port's
   eval path does not call them; they are references for the tests.
+* `bilinear_sample` is the direct four-tap bilinear sampler at per-pixel
+  coordinates (the JAX taps form; its "slab" form is a TPU index-traffic
+  variant with the same values and has no counterpart here). It is the
+  plain version of kernel K7 and the reference of K6's residual bounds.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +41,10 @@ __all__ = [
     "rotate_twopass_from_nchw",
     "rotate_select_fast",
     "rotate_discrete",
+    "bilinear_sample",
     "center_crop",
     "resize",
+    "crop_and_resize",
 ]
 
 
@@ -343,3 +349,81 @@ def resize(x: Tensor, size: Tuple[int, int]) -> Tensor:
         antialias=True,
     )
     return out.to(x.dtype).permute(0, 2, 3, 1)
+
+
+def crop_and_resize(x: Tensor, in_shape: Tuple[int, int, int],
+                    input_crop_ratio: float,
+                    resize_shape: Optional[int]) -> Tensor:
+    """A canonicalization network's NHWC input: centre-crop by
+    `input_crop_ratio` (ceil of the side), then resize to `resize_shape`;
+    grayscale inputs (in_shape[-1] == 1) pass through."""
+    if in_shape[-1] == 1:
+        return x
+    H, W = in_shape[0], in_shape[1]
+    ch = math.ceil(H * input_crop_ratio)
+    cw = math.ceil(W * input_crop_ratio)
+    if (ch, cw) != (H, W):
+        x = center_crop(x, (ch, cw))
+    if resize_shape is not None:
+        x = resize(x, (resize_shape, resize_shape))
+    return x
+
+
+def bilinear_sample(x: Tensor, src_x: Tensor, src_y: Tensor,
+                    padding_mode: str = "zeros") -> Tensor:
+    """Bilinear sampling of NHWC images at float pixel coordinates.
+
+    x: (B, H, W, C); src_x, src_y: (B, Ho, Wo) in pixel units.
+    "zeros": out-of-range taps weigh 0 (grid_sample's zeros mode);
+    "border": taps clamp to the edge (the reference's edge-pad + crop).
+    Computes in fp32 (or x's wider dtype) and returns x's dtype. Taps are
+    summed in the order (x0, y0), (x1, y0), (x0, y1), (x1, y1).
+
+    A non-finite coordinate gives NaN weights and so a NaN pixel; its
+    address is fenced to 0 before the integer conversion.
+    """
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"padding_mode must be zeros or border, got {padding_mode}")
+    B, H, W, C = x.shape
+    Ho, Wo = src_x.shape[1], src_x.shape[2]
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    sx = src_x.to(cdt)
+    sy = src_y.to(cdt)
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = sx - x0
+    fy = sy - y0
+
+    def index(t: Tensor, size: int) -> Tensor:
+        # [-2, size + 1] keeps every out-of-range tap out of range
+        t = torch.where(torch.isfinite(t), t, torch.zeros_like(t))
+        return t.clamp(-2, size + 1).long()
+
+    x0i = index(x0, W)
+    y0i = index(y0, H)
+    flat = x.reshape(B * H * W, C).to(cdt)
+    base = (torch.arange(B, device=x.device) * (H * W))[:, None, None]
+
+    def tap(xi: Tensor, yi: Tensor, w: Tensor) -> Tensor:
+        if padding_mode == "zeros":
+            valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+            w = w * valid.to(cdt)
+        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1) + base
+        return flat[idx.reshape(-1)].reshape(B, Ho, Wo, C) * w[..., None]
+
+    out = (
+        tap(x0i, y0i, (1.0 - fx) * (1.0 - fy))
+        + tap(x0i + 1, y0i, fx * (1.0 - fy))
+        + tap(x0i, y0i + 1, (1.0 - fx) * fy)
+        + tap(x0i + 1, y0i + 1, fx * fy)
+    )
+    return out.to(x.dtype)
+
+
+def _dst_grid(B: int, Ho: int, Wo: int, dtype: torch.dtype,
+              device) -> Tuple[Tensor, Tensor]:
+    """Destination pixel-coordinate grids (gx, gy), broadcast to (B, Ho, Wo)."""
+    ys = torch.arange(Ho, dtype=dtype, device=device)
+    xs = torch.arange(Wo, dtype=dtype, device=device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return gx[None].expand(B, Ho, Wo), gy[None].expand(B, Ho, Wo)

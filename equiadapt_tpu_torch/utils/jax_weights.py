@@ -10,10 +10,16 @@ Flax gives their counterparts, so a leaf's path names its torch owner:
 * `nn.Linear`: `kernel` (in, out) -> `weight` (out, in);
 * BatchNorm: `scale` / `bias` -> `weight` / `bias`, batch stats `mean` /
   `var` -> `running_mean` / `running_var`;
-* GCNN layers: `weights` and `bias` copied as they are (same shapes).
+* GCNN layers: `weights` and `bias` copied as they are (same shapes);
+* steerable layers, copied as they are: `SteerableConv` `w_{fo}_{fi}`
+  (J, 2), `NormNonlinearity` `bias_{fi}` (1,), `NormBatchNorm` `scale`
+  (params) and `norm_sq` (batch_stats). `NormBatchNorm` is not a torch
+  BatchNorm, so its leaves never take the BatchNorm renaming.
 
-It raises on a leaf it cannot place and on a torch parameter or buffer
-left unfilled (other than BatchNorm's `num_batches_tracked`).
+It raises on a leaf it cannot place and on a torch parameter or persistent
+buffer left unfilled (other than BatchNorm's `num_batches_tracked`).
+Non-persistent buffers (constants built from the configuration) are not
+weights and are not filled.
 """
 
 from __future__ import annotations
@@ -25,6 +31,11 @@ import torch
 from torch import nn
 
 from equiadapt_tpu_torch.images.networks.group_conv import _GroupConvBase
+from equiadapt_tpu_torch.images.networks.steerable import (
+    NormBatchNorm,
+    NormNonlinearity,
+    SteerableConv,
+)
 
 __all__ = ["load_flax_variables"]
 
@@ -63,6 +74,12 @@ def _convert(owner: nn.Module, collection: str, leaf: str, value: np.ndarray):
     elif collection == "params" and isinstance(owner, _GroupConvBase):
         if leaf in ("weights", "bias"):
             return leaf, value
+    elif collection == "params" and isinstance(owner, (SteerableConv,
+                                                       NormNonlinearity)):
+        return leaf, value  # a name the module lacks fails as an extra leaf
+    elif isinstance(owner, NormBatchNorm):
+        if (collection, leaf) in (("params", "scale"), ("batch_stats", "norm_sq")):
+            return leaf, value
     raise KeyError(
         f"no place for Flax leaf {collection}/{leaf} in {type(owner).__name__}"
     )
@@ -87,11 +104,10 @@ def load_flax_variables(module: nn.Module,
             name, array = _convert(owner, collection, leaf, value)
             filled[".".join(scope + [name])] = array
 
-    targets = dict(module.named_parameters())
-    targets.update(
-        (n, b) for n, b in module.named_buffers()
+    targets = {
+        n: t for n, t in module.state_dict(keep_vars=True).items()
         if not n.endswith("num_batches_tracked")
-    )
+    }
     missing = sorted(set(targets) - set(filled))
     if missing:
         raise KeyError(f"torch tensors left unfilled: {missing}")

@@ -173,6 +173,11 @@ def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "equiadapt_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    covered = {str(f.relative_to(REPO)) for f in files}
+    for module in ("common/math.py", "ops/kernels/shear_rotate.py",
+                   "ops/kernels/bilinear_warp.py", "images/networks/steerable.py",
+                   "images/canonicalization/continuous_group.py"):
+        assert f"equiadapt_tpu_torch/{module}" in covered, module
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files for name in _imports(f)
