@@ -37,12 +37,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
    port's CPU run; and in the exact preset, canonicalizing torch.rot90(x)
    must give the quarter-turned matrix rep within 1e-4 for at least 99% of
    the batch;
-6. times (CUDA events, after warm-up), per preset: canonicalize +
+6. K8 (fused kNN) against its plain version: fp32 and bf16, N in
+   {6, 100, 1000, 1024}, D in {3, 4, 64, 128}, k in {1, 4, 20}, plus
+   clouds with duplicated points, quantized-grid clouds and a cloud with
+   one NaN point (its indices must stay in [0, N), the other clouds must
+   not change). At D <= 4 the indices must be `torch.equal`; at D > 4 a
+   differing pick is admitted only where the two float64 squared
+   distances lie within 3e-7 (relative), an fp32-level tie;
+7. point-cloud main path at full width (the repo's ModelNet40
+   configuration): batch 64, 1024 points, `VNSmall(n_knn=20, mean
+   pooling, fused kNN)` canonicalize, DGCNN (k 20, emb 1024, 40 classes),
+   and the point-valued invert; K8 must have launched 5 times (once at
+   D = 3 for VNSmall, at D = 3, 64, 64, 128 for DGCNN). Outputs must be
+   finite; the first 8 clouds must agree with the port's CPU run;
+   canonicalizing x @ Q for random rotations Q must give the same
+   canonical cloud (within 1e-3) and class for 95% of the clouds; the
+   invert must give x back within 1e-4;
+8. times (CUDA events, after warm-up), per preset: canonicalize +
    invert images/s, the canonicalizer's overhead over the bare ResNet-50,
    device time by kernel name for one canonicalize + invert and one
-   ResNet-50 call (torch.profiler); and per kernel its time, its bound,
-   its plain version's time, one PyTorch call's time where one computes
-   the same function, and its launches.
+   ResNet-50 call (torch.profiler); for the point-cloud path,
+   canonicalize clouds/s, DGCNN ms, canonicalize + DGCNN ms, the
+   overhead and device time by kernel name; and per kernel its time, its
+   bound, its plain version's time, one PyTorch call's time where one
+   computes the same function, and its launches.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
@@ -88,17 +106,31 @@ CONT_PRESET_KERNELS = {
 # memory bandwidth of the card, bytes/s (NVIDIA data sheets)
 BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
              ("H100", 3.35e12))
+# fp32 rate outside the tensor cores, FLOP/s (NVIDIA data sheets)
+FP32_RATE = (("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12),
+             ("H100", 67e12))
+# point-cloud path: examples/pointcloud/classification/configs/default.yaml
+# with canonicalization/group_equivariant_fused.yaml
+PC_B, PC_N, PC_K, PC_CLASSES, PC_EMB = 64, 1024, 20, 40, 1024
+KNN_SOURCE = "equiadapt_tpu_torch/csrc/knn.cu"
+KNN_TPU = "equiadapt_tpu/ops/pallas/knn.py:139"
+# K8 launches of one point-cloud path run, by wrapper key
+PC_KNN_LAUNCHES = {"knn_indices/float32/d<=4": 2, "knn_indices/float32/d>4": 3}
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def bandwidth_for(name: str) -> float:
-    for key, bw in BANDWIDTH:
+def rate_for(table, name: str, what: str) -> float:
+    for key, value in table:
         if key in name:
-            return bw
-    raise RuntimeError(f"no bandwidth figure for {name!r}")
+            return value
+    raise RuntimeError(f"no {what} figure for {name!r}")
+
+
+def bandwidth_for(name: str) -> float:
+    return rate_for(BANDWIDTH, name, "bandwidth")
 
 
 def sync():
@@ -563,6 +595,246 @@ def check_continuous_equivariance(canon, x, info):
     return {"share_within_1e-4": share, "max_abs_rep": err.max().item()}
 
 
+def knn_agree(points, got, ref):
+    """K8's picks against the plain version's: `torch.equal` at D <= 4; at
+    D > 4 each differing pick must tie the plain one within 3e-7 of the
+    float64 squared distances (relative). Every index must lie in [0, N).
+    Returns (differing picks, max |float64 distance difference|, the same
+    relative to the larger distance)."""
+    N, D = points.shape[1], points.shape[2]
+    assert int(got.min()) >= 0 and int(got.max()) < N, "index out of range"
+    if D <= 4:
+        assert torch.equal(got, ref), "K8 differs from its plain version"
+        return 0, 0.0, 0.0
+    bad = got != ref
+    n_bad = int(bad.sum())
+    if n_bad == 0:
+        return 0, 0.0, 0.0
+    b, q, s = bad.nonzero(as_tuple=True)
+    p = points.double()
+    d_ref = ((p[b, q] - p[b, ref[b, q, s].long()]) ** 2).sum(-1)
+    d_got = ((p[b, q] - p[b, got[b, q, s].long()]) ** 2).sum(-1)
+    gap = (d_ref - d_got).abs()
+    rel = gap / torch.clamp(torch.maximum(d_ref, d_got), min=1e-30)
+    assert bool((rel <= 3e-7).all()), ("K8 pick beyond an fp32 tie",
+                                       rel.max().item())
+    return n_bad, gap.max().item(), rel.max().item()
+
+
+def check_knn_kernel(kn, gen):
+    """K8 against its plain version on ragged cases, ties and a NaN point;
+    launches here are not counted as the main path's."""
+    cases, ties, worst = 0, 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in (6, 100, 1000, 1024):
+            for D in (3, 4, 64, 128):
+                x = torch.randn(3, N, D, generator=gen).to(DEVICE, dtype)
+                for k in (1, 4, 20):
+                    if k > N:
+                        continue
+                    got, ref = kn.knn_indices(x, k), kn.knn_indices_plain(x, k)
+                    sync()
+                    n_bad, _, rel = knn_agree(x, got, ref)
+                    ties, worst = ties + n_bad, max(worst, rel)
+                    cases += 1
+        for D in (3, 64):
+            x = torch.randn(3, 1000, D, generator=gen)
+            dup = x.clone()
+            dup[:, 500:] = x[:, :500]  # every point twice: exact ties
+            grid = torch.round(x * 2.0) / 4.0  # a 0.25 grid: many ties
+            for cloud in (dup, grid):
+                cloud = cloud.to(DEVICE, dtype)
+                got = kn.knn_indices(cloud, 20)
+                n_bad, _, rel = knn_agree(cloud, got, kn.knn_indices_plain(cloud, 20))
+                ties, worst = ties + n_bad, max(worst, rel)
+                cases += 1
+            nan = x.to(DEVICE, dtype)
+            clean = kn.knn_indices(nan, 20)
+            nan[1, 17] = float("nan")
+            got = kn.knn_indices(nan, 20)
+            sync()
+            assert int(got.min()) >= 0 and int(got.max()) < 1000, "NaN cloud"
+            assert torch.equal(got[[0, 2]], clean[[0, 2]]), "NaN leaked"
+            cases += 1
+    log(f"K8 checks: {cases} cases against the plain version; "
+        f"{ties} picks at D > 4 differ, each an fp32-level tie (largest "
+        f"relative gap {worst:.3g})")
+    return {"cases": cases, "tie_picks": ties, "max_rel_gap": worst}
+
+
+def knn_yardstick(x, k):
+    """The XLA-style formulation in two PyTorch calls: the (B, N, N)
+    distances by one baddbmm, then torch.topk (its tie order is not
+    specified)."""
+    sq = (x * x).sum(-1)
+    d = torch.baddbmm(-(sq[:, :, None] + sq[:, None, :]), x, x.transpose(1, 2),
+                      alpha=2.0)
+    return torch.topk(d, k, dim=-1).indices
+
+
+def knn_measure(kn, D, gen, bwidth, rate):
+    """Check and time K8 at one path shape (PC_B, PC_N, D), k = PC_K."""
+    x = torch.randn(PC_B, PC_N, D, generator=gen).to(DEVICE)
+    run = lambda: kn.knn_indices(x, PC_K)
+    plain = lambda: kn.knn_indices_plain(x, PC_K)
+    got, ref = run(), plain()
+    sync()
+    n_bad, err, rel = knn_agree(x, got, ref)
+    yard = lambda: knn_yardstick(x, PC_K)
+    yard_same = (yard() == got).float().mean().item()
+    flops = 2 * PC_B * PC_N * PC_N * D
+    nbytes = x.numel() * x.element_size() + got.numel() * got.element_size()
+    out = {"ms": cuda_ms(run, reps=20), "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+           "max_abs_err": err, "tie_picks": n_bad, "max_rel_gap": rel,
+           "bound_ms": max(flops / rate, nbytes / bwidth) * 1e3,
+           "bound_by": "operations" if flops / rate >= nbytes / bwidth else "bytes",
+           "flops": flops, "bytes": nbytes, "shape": [PC_B, PC_N, D], "k": PC_K,
+           "yardstick_ms": cuda_ms(yard, reps=10),
+           "yardstick": "torch.baddbmm + torch.topk",
+           "yardstick_same_index_share": yard_same}
+    del x, got, ref
+    return out
+
+
+def knn_entries(kn, gen, bwidth, rate, launches):
+    """Two `kernels` entries, one per distance branch: D = 3 (d<=4) and
+    D = 128 (d>4, with D = 64 under "D64"). No single PyTorch call
+    computes kNN indices, so library_ms is null; the yardstick's time
+    stands beside it."""
+    entries = []
+    for branch, dims in (("d<=4", (3,)), ("d>4", (128, 64))):
+        main = knn_measure(kn, dims[0], gen, bwidth, rate)
+        entry = {"name": f"knn_indices[float32,{branch}]", "route": "cuda",
+                 "source": KNN_SOURCE, "replaces": KNN_TPU,
+                 "launches": launches.get(f"knn_indices/float32/{branch}", 0),
+                 "library_ms": None, **main}
+        for D in dims[1:]:
+            entry[f"D{D}"] = knn_measure(kn, D, gen, bwidth, rate)
+        entries.append(entry)
+        log(f"K8 {branch}: {json.dumps(entry)}")
+    return entries
+
+
+def random_bn_statistics(module):
+    """BatchNorm running statistics drawn away from 0 / 1."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+
+
+def build_pointcloud(tp):
+    """The repo's ModelNet40 configuration with random weights: VNSmall
+    (k 20, mean pooling, fused kNN) canonicalizer and DGCNN (k 20, emb
+    1024, 40 classes). Built on the CPU from seed 3 and moved to the card,
+    so the weights do not depend on the device's generator.
+
+    Random VN weights often give three frame vectors that are nearly
+    collinear, and classical Gram-Schmidt then loses orthogonality in
+    proportion (fp32 eps over the smallest singular value ratio). Seed 3
+    gives a smallest over largest singular value of at least 0.011 on
+    all 64 clouds of `anisotropic_clouds` (CPU run), which keeps R R^T
+    within about 3e-6 of I."""
+    torch.manual_seed(3)
+    canon = tp.EquivariantPointcloudCanonicalization(
+        tp.VNSmall(n_knn=PC_K, pooling="mean", knn_mode="fused", device="cpu"))
+    random_bn_statistics(canon)
+    dgcnn = tp.DGCNN(num_classes=PC_CLASSES, k=PC_K, emb_dims=PC_EMB,
+                     knn_mode="fused", device="cpu")
+    random_bn_statistics(dgcnn)
+    return tp.PointcloudClassificationPipeline(canon, dgcnn).to(DEVICE).eval()
+
+
+def random_rotations(b, gen):
+    """b random proper rotations (QR of Gaussian matrices)."""
+    q, r = torch.linalg.qr(torch.randn(b, 3, 3, generator=gen, dtype=torch.float64))
+    q = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[:, None, :]
+    q[torch.linalg.det(q) < 0, :, 0] *= -1
+    return q.float()
+
+
+def anisotropic_clouds(gen):
+    """Gaussian clouds with axis scales 1, 0.6 and 0.3, each turned by a
+    random rotation (an isotropic cloud has no preferred axes)."""
+    x = torch.randn(PC_B, PC_N, 3, generator=gen) * torch.tensor([1.0, 0.6, 0.3])
+    return x @ random_rotations(PC_B, gen)
+
+
+def run_pointcloud(pipe, x):
+    """The path: canonicalize, DGCNN, and the point-valued invert of the
+    canonical cloud."""
+    canon = pipe.canonicalizer
+    x_c, info = canon.canonicalize(x)
+    logits = pipe.prediction_network(x_c)
+    return x_c, info, logits, canon.invert_canonicalization(info, x_c)
+
+
+def check_pointcloud(pipe, x, x_c, info, logits, x_back, gen, m=8):
+    """Agreement with the port's CPU run, SO(3) invariance and the invert.
+
+    Bars (fp32, TF32 off):
+    - canonical clouds within 1e-4 of the CPU run: the frame comes from fp32
+      products summed in another order (about 1e-6 of a coordinate), and
+      the D = 3 kNN indices are bit-equal by construction;
+    - logits within 1e-3 of the largest logit, the CPU DGCNN run on the
+      card's canonical clouds: fp32 products in another order, plus any
+      D > 4 neighbour pick that flips at an fp32 tie; classes equal;
+    - x @ Q: canonical clouds within 1e-3 and classes equal for 95% of the
+      clouds (a neighbour tie at the rounding level can flip a few);
+    - the invert gives x back within 1e-4 (R R^T = I to fp32 rounding)."""
+    pipe_cpu = copy.deepcopy(pipe).to("cpu")
+    xc_cpu, info_cpu = pipe_cpu.canonicalizer.canonicalize(x[:m].cpu())
+    logits_cpu = pipe_cpu.prediction_network(x_c[:m].cpu())
+    d_canon = (x_c[:m].cpu() - xc_cpu).abs().max().item()
+    d_rot = (info.element.rotation[:m].cpu() - info_cpu.element.rotation).abs().max().item()
+    d_log = ((logits[:m].cpu() - logits_cpu).abs().max()
+             / logits_cpu.abs().max()).item()
+    top2 = logits_cpu.sort(dim=-1).values[:, -2:]
+    same_cpu = bool((logits[:m].argmax(-1).cpu() == logits_cpu.argmax(-1)).all())
+    assert d_canon < 1e-4 and d_log < 1e-3 and same_cpu, (d_canon, d_log, same_cpu)
+
+    Q = random_rotations(x.shape[0], gen).to(DEVICE)
+    x_c_rot, _ = pipe.canonicalizer.canonicalize(x @ Q)
+    logits_rot = pipe.prediction_network(x_c_rot)
+    err = (x_c_rot - x_c).abs().amax(dim=(1, 2))
+    share = (err < 1e-3).float().mean().item()
+    same_class = (logits_rot.argmax(-1) == logits.argmax(-1)).float().mean().item()
+    d_back = (x_back - x).abs().max().item()
+    assert share >= 0.95 and same_class >= 0.95 and d_back < 1e-4, (
+        share, same_class, d_back)
+    sv = torch.linalg.svdvals(pipe.canonicalizer.canonicalization_network(x))
+    return {"cpu": {"clouds": m, "max_abs_canon": d_canon, "max_abs_rotation": d_rot,
+                    "max_rel_logit": d_log, "same_class": same_cpu,
+                    "min_top2_margin_rel": ((top2[:, 1] - top2[:, 0]).min()
+                                            / logits_cpu.abs().max()).item()},
+            "so3": {"share_canon_within_1e-3": share, "median_abs_canon":
+                    err.median().item(), "max_abs_canon": err.max().item(),
+                    "share_same_class": same_class},
+            "invert_max_abs": d_back,
+            "frame_min_singular_ratio": (sv[:, -1] / sv[:, 0]).min().item()}
+
+
+def time_pointcloud(pipe, x):
+    """End-to-end times of the point-cloud path and its device profile."""
+    canon, dgcnn = pipe.canonicalizer, pipe.prediction_network
+    x_c = canon.canonicalize(x)[0]
+    t_bare = cuda_ms(lambda: dgcnn(x_c), reps=5)
+    t_wrapped = cuda_ms(lambda: dgcnn(canon.canonicalize(x)[0]), reps=5)
+    t_canon = cuda_ms(lambda: canon.canonicalize(x), reps=5)
+    times = {"dgcnn_ms": t_bare, "canon_dgcnn_ms": t_wrapped,
+             "canonicalize_ms": t_canon,
+             "canonicalize_clouds_per_s": x.shape[0] / t_canon * 1e3,
+             "overhead_pct": (t_wrapped - t_bare) / t_bare * 100.0}
+    log(f"pointcloud: {json.dumps(times)}")
+    prof = {"canon_dgcnn": device_profile(lambda: dgcnn(canon.canonicalize(x)[0])),
+            "canonicalize": device_profile(lambda: canon.canonicalize(x))}
+    times["profile"] = prof
+    for part, rows in prof.items():
+        log(f"pointcloud profile {part}: {json.dumps(rows[:12] + rows[-1:])}")
+    return times
+
+
 def device_profile(fn, top: int = 25):
     """Device time by kernel name over one call of fn (after a warm-up
     call): [name, ms, calls] rows, largest first, then the total."""
@@ -625,6 +897,7 @@ def main() -> int:
     import equiadapt_tpu_torch as tp
     from equiadapt_tpu_torch.ops.kernels import _build
     from equiadapt_tpu_torch.ops.kernels import bilinear_warp as bw
+    from equiadapt_tpu_torch.ops.kernels import knn as kn
     from equiadapt_tpu_torch.ops.kernels import select_warp as sw
     from equiadapt_tpu_torch.ops.kernels import shear_rotate as sr
 
@@ -635,6 +908,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     bwidth = bandwidth_for(name)
+    rate = rate_for(FP32_RATE, name, "fp32 rate")
     log(f"device: {name}; nvidia-smi: {smi}; bandwidth used for bounds "
         f"{bwidth / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA {torch.version.cuda}")
     results = {"device": name, "nvidia_smi": smi, "bandwidth": bwidth}
@@ -649,6 +923,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     check_kernels(sw, gen)
     check_continuous_kernels(sr, bw, gen)
+    gen_knn = torch.Generator().manual_seed(1)  # leaves `gen`'s images as they were
+    knn_checks = check_knn_kernel(kn, gen_knn)
 
     presets = build_presets(tp)
     x = smooth_images(gen).to(DEVICE)
@@ -714,6 +990,28 @@ def main() -> int:
                                         induced_rep_type="scalar")
         del xs, y_cont, ys_cont
 
+        pipe = build_pointcloud(tp)
+        gen_pc = torch.Generator().manual_seed(0)  # the clouds build_pointcloud names
+        pcs = anisotropic_clouds(gen_pc).to(DEVICE)
+        kn.reset_launches()
+        out = run_pointcloud(pipe, pcs)
+        sync()
+        pc_counts = dict(kn.launches)
+        launches.update({f"pointcloud:{k}": v for k, v in pc_counts.items()})
+        log(f"pointcloud: launches {pc_counts}")
+        assert pc_counts == PC_KNN_LAUNCHES, pc_counts
+        x_c, info, logits, x_back = out
+        assert x_c.shape == pcs.shape and logits.shape == (PC_B, PC_CLASSES)
+        assert x_back.shape == pcs.shape
+        for t in (x_c, logits, x_back, info.element.rotation):
+            assert bool(torch.isfinite(t).all()), "pointcloud"
+        checks["pointcloud"] = check_pointcloud(pipe, pcs, *out, gen_pc)
+        checks["knn"] = knn_checks
+        log(f"pointcloud: {json.dumps(checks['pointcloud'])}")
+        del out, x_c, info, logits, x_back
+        times["pointcloud"] = time_pointcloud(pipe, pcs)
+        del pipe, pcs
+
         kernels = []
         gen_dev = torch.Generator(device=DEVICE).manual_seed(3)
         for dtype in (torch.float32, torch.bfloat16):
@@ -730,6 +1028,7 @@ def main() -> int:
                                           if k.endswith(f":{kname}/{tag}"))}
                 kernels.append(continuous_entry(sr, bw, kname, dtype, gen_dev,
                                                 bwidth, main_launches))
+        kernels += knn_entries(kn, gen_knn, bwidth, rate, pc_counts)
     results.update(launches=launches, checks=checks, times=times,
                    kernels=kernels)
     if args.out:

@@ -14,7 +14,10 @@ Ported so far, eval only:
   (kernel K2);
 * the continuous (SO(2) / O(2)) steerable path: steerable network ->
   rotation matrix -> warp, exact (kernel K7) or fast (kernels K5 + K6) ->
-  prediction network -> scalar invert (the same warp kernels).
+  prediction network -> scalar invert (the same warp kernels);
+* the SO(3) point-cloud path: VNSmall frame estimation (kNN graph by
+  kernel K8) -> Gram-Schmidt -> x @ R^T -> DGCNN (kNN graphs by K8) ->
+  point-valued invert y @ R.
 """
 
 from equiadapt_tpu_torch.common import (
@@ -25,6 +28,7 @@ from equiadapt_tpu_torch.common import (
     DiscreteGroupElement,
     IdentityCanonicalization,
     IdentityCanonicalizationInfo,
+    LieParameterization,
     identity_metric,
     prior_regularization_loss,
 )
@@ -36,8 +40,24 @@ from equiadapt_tpu_torch.images import (
     SteerableImageCanonicalization,
     SteerableNetwork,
 )
-from equiadapt_tpu_torch.models import ResNet18, ResNet50
+from equiadapt_tpu_torch.models import DGCNN, PointNet, ResNet18, ResNet50
 from equiadapt_tpu_torch.ops.group_action import get_action_on_image_features
+from equiadapt_tpu_torch.pipelines import PointcloudClassificationPipeline
+from equiadapt_tpu_torch.pointcloud import (
+    ContinuousGroupPointcloudCanonicalization,
+    EquivariantPointcloudCanonicalization,
+    VNBatchNorm,
+    VNBilinear,
+    VNLeakyReLU,
+    VNLinear,
+    VNLinearLeakyReLU,
+    VNMaxPool,
+    VNSmall,
+    VNSoftplus,
+    VNStdFeature,
+    graph_feature_cross,
+    mean_pool,
+)
 from equiadapt_tpu_torch.utils import load_flax_variables
 
 __all__ = [
@@ -50,6 +70,7 @@ __all__ = [
     "IdentityCanonicalizationInfo",
     "prior_regularization_loss",
     "identity_metric",
+    "LieParameterization",
     "DiscreteGroupImageCanonicalization",
     "GroupEquivariantImageCanonicalization",
     "EquivariantNetwork",
@@ -58,6 +79,22 @@ __all__ = [
     "SteerableNetwork",
     "ResNet18",
     "ResNet50",
+    "PointNet",
+    "DGCNN",
+    "ContinuousGroupPointcloudCanonicalization",
+    "EquivariantPointcloudCanonicalization",
+    "VNSmall",
+    "graph_feature_cross",
+    "VNBatchNorm",
+    "VNBilinear",
+    "VNLeakyReLU",
+    "VNLinear",
+    "VNLinearLeakyReLU",
+    "VNMaxPool",
+    "VNSoftplus",
+    "VNStdFeature",
+    "mean_pool",
+    "PointcloudClassificationPipeline",
     "get_action_on_image_features",
     "load_flax_variables",
 ]

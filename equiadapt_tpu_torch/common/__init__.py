@@ -1,4 +1,4 @@
-"""Canonicalization bases, infos, selectors and frame math."""
+"""Canonicalization bases, infos, selectors, frame math and Lie groups."""
 
 from equiadapt_tpu_torch.common.base import (
     BaseCanonicalization,
@@ -13,6 +13,7 @@ from equiadapt_tpu_torch.common.info import (
     identity_metric,
     prior_regularization_loss,
 )
+from equiadapt_tpu_torch.common.lie import LieParameterization
 from equiadapt_tpu_torch.common.math import (
     det_2x2,
     gram_schmidt,
@@ -37,6 +38,7 @@ __all__ = [
     "IdentityCanonicalizationInfo",
     "identity_metric",
     "prior_regularization_loss",
+    "LieParameterization",
     "gumbel_softmax_onehot",
     "hard_onehot",
     "select_onehot",

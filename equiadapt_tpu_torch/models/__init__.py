@@ -1,5 +1,6 @@
 """Prediction networks."""
 
+from equiadapt_tpu_torch.models.pointnet import DGCNN, PointNet, get_graph_feature
 from equiadapt_tpu_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
@@ -10,5 +11,5 @@ from equiadapt_tpu_torch.models.resnet import (
     WideResNet101,
 )
 
-__all__ = ["BasicBlock", "Bottleneck", "ResNet", "ResNet18", "ResNet50",
-           "WideResNet50", "WideResNet101"]
+__all__ = ["DGCNN", "PointNet", "get_graph_feature", "BasicBlock", "Bottleneck",
+           "ResNet", "ResNet18", "ResNet50", "WideResNet50", "WideResNet101"]

@@ -2,4 +2,9 @@
 
 `select_warp`: the steered rotate-select (K1) and the fused
 rotate-select-roll (K2), from `csrc/select_warp.cu`.
+`shear_rotate`: the centered quarter turn (K5) and the three-shear residual
+(K6), from `csrc/shear_rotate.cu`.
+`bilinear_warp`: the exact bilinear rotation warp (K7), from
+`csrc/bilinear_warp.cu`.
+`knn`: the fused k-nearest-neighbour indices (K8), from `csrc/knn.cu`.
 """

@@ -14,7 +14,8 @@ Flax gives their counterparts, so a leaf's path names its torch owner:
 * steerable layers, copied as they are: `SteerableConv` `w_{fo}_{fi}`
   (J, 2), `NormNonlinearity` `bias_{fi}` (1,), `NormBatchNorm` `scale`
   (params) and `norm_sq` (batch_stats). `NormBatchNorm` is not a torch
-  BatchNorm, so its leaves never take the BatchNorm renaming.
+  BatchNorm, so its leaves never take the BatchNorm renaming;
+* `VNBilinear` `bilinear` (C1, C2, out) copied as it is.
 
 It raises on a leaf it cannot place and on a torch parameter or persistent
 buffer left unfilled (other than BatchNorm's `num_batches_tracked`).
@@ -36,6 +37,7 @@ from equiadapt_tpu_torch.images.networks.steerable import (
     NormNonlinearity,
     SteerableConv,
 )
+from equiadapt_tpu_torch.pointcloud.vector_neurons import VNBilinear
 
 __all__ = ["load_flax_variables"]
 
@@ -77,6 +79,9 @@ def _convert(owner: nn.Module, collection: str, leaf: str, value: np.ndarray):
     elif collection == "params" and isinstance(owner, (SteerableConv,
                                                        NormNonlinearity)):
         return leaf, value  # a name the module lacks fails as an extra leaf
+    elif collection == "params" and isinstance(owner, VNBilinear):
+        if leaf == "bilinear":
+            return leaf, value
     elif isinstance(owner, NormBatchNorm):
         if (collection, leaf) in (("params", "scale"), ("batch_stats", "norm_sq")):
             return leaf, value

@@ -156,6 +156,9 @@ def test_no_silent_cpu():
         tp.ResNet50(num_classes=10)
     with pytest.raises((RuntimeError, AssertionError)):
         group_angles(8)
+    for build in (tp.VNSmall, tp.DGCNN, tp.PointNet, lambda: tp.VNLinear(3, 4)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            build()
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "equiadapt_tpu")
@@ -176,7 +179,11 @@ def test_port_imports_nothing_of_jax():
     covered = {str(f.relative_to(REPO)) for f in files}
     for module in ("common/math.py", "ops/kernels/shear_rotate.py",
                    "ops/kernels/bilinear_warp.py", "images/networks/steerable.py",
-                   "images/canonicalization/continuous_group.py"):
+                   "images/canonicalization/continuous_group.py",
+                   "common/lie.py", "ops/kernels/knn.py",
+                   "pointcloud/vector_neurons.py", "pointcloud/networks.py",
+                   "pointcloud/canonicalization.py", "models/pointnet.py",
+                   "pipelines/pointcloud.py"):
         assert f"equiadapt_tpu_torch/{module}" in covered, module
     bad = [
         (str(f.relative_to(REPO)), name)
