@@ -53,14 +53,42 @@ Phases, in order; any failure raises and the exit code is non-zero:
    canonicalizing x @ Q for random rotations Q must give the same
    canonical cloud (within 1e-3) and class for 95% of the clouds; the
    invert must give x back within 1e-4;
-8. times (CUDA events, after warm-up), per preset: canonicalize +
+8. K4 (exact D4 orbit) against its plain version, bit for bit (compared as
+   integers): fp32 and bf16, H in {1, 7, 33, 96, 224}, C in {1, 3, 16},
+   B in {1, 5}, 1, 2 or 4 rotations, with and without reflections, sign
+   +-1, a NaN and a -0.0 in every input;
+9. group inference at full width: configs/default.yaml's canonicalizer
+   (C4 GCNN, 3 -> 16 channels, 3x3, 2 layers, crop 0.9, resize 64, exact
+   warp) built by the port's registry, ResNet-50 (10 classes), 224 px;
+   `group_inference` on 64 images sweeps their C4 orbit (256 images).
+   K4 must launch once and K1 with one source (K1a) at least once. The
+   metrics must be finite; each orbit element's canonical image must match
+   element 0's within 1e-4 and its class be equal for 99% of the batch;
+   acc_element_g must agree with the port's CPU run on the first 8 images;
+   `vanilla_inference`'s test/acc must equal acc_element_0 and
+   `make_eval_step`'s metrics be finite;
+10. the optimized (orbit-scoring) canonicalizer at full width:
+   configs/canonicalization/opt_group_equivariant.yaml (ConvNetwork 5x5,
+   32 channels, 2 layers, 128-vector; D8; crop 0.9, resize 96; exact warp)
+   built by the port's registry, and its D4 variant, on 128 images of
+   96 px before ResNet-50. D8 orbits by static warps (no K4) and selects
+   with two-source K1; D4 orbits by one K4 launch (reflections) and
+   selects with K1a. Outputs must be finite; the first 8 images must
+   agree with the port's CPU run; at D4, canonicalizing torch.rot90(x)
+   must select the next rotation of the same coset for 99% of the batch
+   (at a crop of 0.875, whose margins are equal);
+11. times (CUDA events, after warm-up), per preset: canonicalize +
    invert images/s, the canonicalizer's overhead over the bare ResNet-50,
    device time by kernel name for one canonicalize + invert and one
    ResNet-50 call (torch.profiler); for the point-cloud path,
    canonicalize clouds/s, DGCNN ms, canonicalize + DGCNN ms, the
-   overhead and device time by kernel name; and per kernel its time, its
-   bound, its plain version's time, one PyTorch call's time where one
-   computes the same function, and its launches.
+   overhead and device time by kernel name; for group inference, images/s
+   over the orbit and the orbit, canonicalize and ResNet-50 ms; for the
+   optimized canonicalizer, canonicalize ms, canonicalize + ResNet-50 ms,
+   the overhead over the bare ResNet-50 at 96 px and the canonicalizer's
+   parts; and per kernel its time, its bound, its plain version's time,
+   one PyTorch call's time where one computes the same function, and its
+   launches.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
@@ -116,6 +144,21 @@ KNN_SOURCE = "equiadapt_tpu_torch/csrc/knn.cu"
 KNN_TPU = "equiadapt_tpu/ops/pallas/knn.py:139"
 # K8 launches of one point-cloud path run, by wrapper key
 PC_KNN_LAUNCHES = {"knn_indices/float32/d<=4": 2, "knn_indices/float32/d>4": 3}
+ORBIT_SOURCE = "equiadapt_tpu_torch/csrc/orbit.cu"
+ORBIT_TPU = "equiadapt_tpu/ops/pallas/orbit.py:111"
+# group inference: examples/images/classification/configs/default.yaml at
+# bench.py's 224 px; the C4 orbit of 64 images is a batch of 256
+GI_B, GI_CLASSES = 64, 10
+# optimized canonicalizer: configs/canonicalization/opt_group_equivariant.yaml
+# at STL-10 scale (bench.py:309)
+OPT_B, OPT_IMAGE = 128, 96
+# crop of the D4 shift-law check: ceil(96 * 0.875) = 84 leaves 6 px on each
+# side, so crop and resize commute with rot90 (the yaml's 0.9 leaves 4 and 5)
+OPT_SYMMETRIC_CROP = 0.875
+# K4 at the paths' shapes: path -> (batch, side, channels, rotations,
+# reflections, sign)
+ORBIT_SHAPES = {"group_inference": (GI_B, IMAGE, 3, 4, False, 1.0),
+                "optimized_d4": (OPT_B, OPT_IMAGE, 3, 4, True, -1.0)}
 
 
 def log(*a):
@@ -332,7 +375,7 @@ def kernel_entry(sw, name, dtype, gen, bw, launches, one_source=False):
     return {
         "name": f"{name}[{tag}]", "route": "cuda", "source": SOURCE,
         "replaces": replaces,
-        "launches": 0 if one_source else launches.get(f"{name}/{tag}", 0),
+        "launches": launches.get(f"{name}/{tag}", 0),
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
         "library": "torch.gather, precomputed int64 index",
@@ -477,22 +520,25 @@ def build_continuous_presets(tp, resnet, resnet_bf16):
             "continuous_serving": (serving.eval(), resnet_bf16)}
 
 
-def smooth_images(gen):
+def smooth_images(gen, b=None, size=None):
     """Low-frequency images plus noise: oriented content, so the random
     energy network separates its top two elements clearly (white noise
-    leaves margins near 1e-5)."""
-    lo = torch.randn(B, 3, 6, 6, generator=gen)
-    up = torch.nn.functional.interpolate(lo, size=(IMAGE, IMAGE), mode="bicubic",
+    leaves margins near 1e-5). b x size x size, B x IMAGE x IMAGE unless
+    given."""
+    b, size = b or B, size or IMAGE
+    lo = torch.randn(b, 3, 6, 6, generator=gen)
+    up = torch.nn.functional.interpolate(lo, size=(size, size), mode="bicubic",
                                          align_corners=False)
     return 4.0 * up.permute(0, 2, 3, 1) + 0.5 * torch.randn(
-        B, IMAGE, IMAGE, 3, generator=gen)
+        b, size, size, 3, generator=gen)
 
 
-def lowfreq_images(gen, C=3):
+def lowfreq_images(gen, C=3, b=None, size=None):
     """Smooth images in [0, 1] (no white noise): a frame that moves by a
     small angle moves pixel values by a small amount."""
-    lo = torch.rand(B, C, 6, 6, generator=gen)
-    up = torch.nn.functional.interpolate(lo, size=(IMAGE, IMAGE), mode="bicubic",
+    b, size = b or B, size or IMAGE
+    lo = torch.rand(b, C, 6, 6, generator=gen)
+    up = torch.nn.functional.interpolate(lo, size=(size, size), mode="bicubic",
                                          align_corners=False)
     return up.clamp(0.0, 1.0).permute(0, 2, 3, 1).contiguous()
 
@@ -715,11 +761,11 @@ def knn_entries(kn, gen, bwidth, rate, launches):
     return entries
 
 
-def random_bn_statistics(module):
+def random_bn_statistics(module, kinds=(torch.nn.BatchNorm1d,)):
     """BatchNorm running statistics drawn away from 0 / 1."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, torch.nn.BatchNorm1d):
+            if isinstance(m, kinds):
                 m.running_mean.normal_(0.0, 0.1)
                 m.running_var.uniform_(0.5, 1.5)
 
@@ -835,6 +881,342 @@ def time_pointcloud(pipe, x):
     return times
 
 
+class SourceLog:
+    """The number of sources of each K1 / K2 launch made while a main path
+    runs (K1a is K1 with one source), by path: wraps the select wrappers'
+    launcher, which counts the launch itself."""
+
+    def __init__(self, sw):
+        self.path, self.rows = None, []
+        launch = sw._launch
+
+        def recording(name, sources, *args):
+            if self.path is not None:
+                tag = str(sources[0].dtype).removeprefix("torch.")
+                self.rows.append((self.path, name, tag, len(sources)))
+            return launch(name, sources, *args)
+
+        sw._launch = recording
+
+    def start(self, path):
+        self.path = path
+
+    def stop(self):
+        self.path = None
+
+    def select_launches(self, path=None):
+        """{"select_planes/<dtype>": launches with 2+ sources,
+        "select_planes/<dtype>,1 source": with one}, over one path or all."""
+        out = {}
+        for p, name, tag, n in self.rows:
+            if name == "select_planes" and path in (None, p):
+                key = f"{name}/{tag}" + (",1 source" if n == 1 else "")
+                out[key] = out.get(key, 0) + 1
+        return out
+
+
+def default_canonicalization(cfgmod):
+    """The canonicalization group of
+    examples/images/classification/configs/default.yaml."""
+    return cfgmod.CanonicalizationConfig(
+        canonicalization_type="group_equivariant",  # default.yaml:5
+        network_type="e2cnn",  # default.yaml:6
+        network_hyperparams=cfgmod.NetworkHyperparams(
+            kernel_size=3,  # default.yaml:8
+            out_channels=16,  # default.yaml:9
+            num_layers=2,  # default.yaml:10
+            group_type="rotation",  # default.yaml:11
+            num_rotations=4),  # default.yaml:12
+        beta=1.0,  # default.yaml:13
+        input_crop_ratio=0.9,  # default.yaml:14
+        resize_shape=64)  # default.yaml:15
+
+
+def opt_canonicalization(cfgmod, num_rotations):
+    """examples/images/classification/configs/canonicalization/
+    opt_group_equivariant.yaml (num_rotations 8), or its D4 variant."""
+    return cfgmod.CanonicalizationConfig(
+        canonicalization_type="opt_group_equivariant",  # opt_group_equivariant.yaml:2
+        network_type="cnn",  # opt_group_equivariant.yaml:3
+        network_hyperparams=cfgmod.NetworkHyperparams(  # opt_group_equivariant.yaml:4
+            kernel_size=5, out_channels=32, num_layers=2,
+            group_type="roto-reflection", num_rotations=num_rotations,
+            out_vector_size=128),
+        beta=1.0,  # opt_group_equivariant.yaml:5
+        input_crop_ratio=0.9,  # opt_group_equivariant.yaml:6
+        resize_shape=96,  # opt_group_equivariant.yaml:7
+        learn_ref_vec=False,  # opt_group_equivariant.yaml:8
+        artifact_err_wt=0.0)  # opt_group_equivariant.yaml:9
+
+
+def orbit_bits(t):
+    """The words of a float32 / bfloat16 tensor as integers, so that NaN
+    payloads and -0.0 count in a comparison."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def check_orbit_kernel(orb, gen):
+    """K4 against its plain version, bit for bit, on ragged cases with a NaN
+    and a -0.0 in every input; launches here are not counted as the main
+    paths'."""
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for H in (1, 7, 33, 96, 224):
+            for C in (1, 3, 16):
+                for b in (1, 5):
+                    x = torch.randn(b, H, H, C, generator=gen)
+                    x.view(-1)[0] = float("nan")
+                    x.view(-1)[-1] = -0.0
+                    x = x.to(DEVICE, dtype)
+                    for n in (1, 2, 4):
+                        for refl in (False, True):
+                            for sign in (-1.0, 1.0):
+                                got = orb.rot90_flip_orbit(x, n, refl, sign)
+                                ref = orb.rot90_flip_orbit_plain(x, n, refl, sign)
+                                sync()
+                                assert torch.equal(orbit_bits(got), orbit_bits(ref)), (
+                                    "K4", dtype, H, C, b, n, refl, sign)
+                                cases += 1
+    log(f"K4 checks: {cases} cases bit-equal to the plain version")
+    return {"cases": cases}
+
+
+def orbit_measure(orb, b, size, c, n, refl, sign, dtype, gen, bwidth):
+    """Check and time K4 at one path shape; the yardstick is one
+    torch.gather with the flat index of the same permutation (the plain
+    version run on index values), built outside the timed window."""
+    x = torch.rand(b, size, size, c, generator=gen).to(DEVICE, dtype)
+    run = lambda: orb.rot90_flip_orbit(x, n, refl, sign)
+    plain = lambda: orb.rot90_flip_orbit_plain(x, n, refl, sign)
+    got, ref = run(), plain()
+    sync()
+    assert torch.equal(orbit_bits(got), orbit_bits(ref)), ("K4", dtype, size)
+    iota = torch.arange(x.numel(), device=DEVICE).view_as(x)
+    idx = orb.rot90_flip_orbit_plain(iota, n, refl, sign).reshape(-1)
+    del iota
+    flat = x.reshape(-1)
+    lib = lambda: torch.gather(flat, 0, idx)
+    assert torch.equal(orbit_bits(lib().view_as(got)), orbit_bits(got)), (
+        "K4 gather yardstick differs")
+    nbytes = (1 + got.shape[0]) * x.numel() * x.element_size()
+    out = {"ms": cuda_ms(run, reps=20), "plain_ms": cuda_ms(plain, reps=5, warmup=1),
+           "library_ms": cuda_ms(lib, reps=10),
+           "library": "torch.gather, precomputed int64 index",
+           "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+           "bound_ms": nbytes / bwidth * 1e3, "bytes": nbytes,
+           "shape": [b, size, size, c], "elements": got.shape[0], "sign": sign}
+    del x, got, ref, idx, flat
+    return out
+
+
+def orbit_entries(orb, gen, bwidth, path_launches):
+    """K4's `kernels` entries, fp32 and bf16: the group-inference launch in
+    the main fields, the D4 canonicalizer's under "optimized_d4"."""
+    entries = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).removeprefix("torch.")
+        shapes = {p: orbit_measure(orb, *shape, dtype, gen, bwidth)
+                  for p, shape in ORBIT_SHAPES.items()}
+        by_path = {p: counts.get(f"rot90_flip_orbit/{tag}", 0)
+                   for p, counts in path_launches.items()}
+        entry = {"name": f"rot90_flip_orbit[{tag}]", "route": "cuda",
+                 "source": ORBIT_SOURCE, "replaces": ORBIT_TPU,
+                 "launches": sum(by_path.values()), "launches_by_path": by_path,
+                 "bound_by": "bytes", **shapes["group_inference"],
+                 "optimized_d4": shapes["optimized_d4"]}
+        entries.append(entry)
+        log(f"K4 {tag}: {json.dumps(entry)}")
+    return entries
+
+
+def build_group_inference(tp, resnet):
+    """The group-inference model: configs/default.yaml's C4 canonicalizer
+    at 224 px through the port's registry (weights from seed 4, BatchNorm
+    statistics drawn away from 0 / 1) and the exact preset's ResNet-50."""
+    from equiadapt_tpu_torch.utils import config as cfgmod
+
+    torch.manual_seed(4)
+    c = default_canonicalization(cfgmod)
+    in_shape = (IMAGE, IMAGE, 3)
+    canon = tp.get_image_canonicalizer(
+        c, tp.get_image_canonicalization_network(c, in_shape, device=DEVICE),
+        in_shape, device=DEVICE)
+    random_bn_statistics(canon, (torch.nn.BatchNorm2d,))
+    return tp.ImageClassifierPipeline(canon, resnet).eval()
+
+
+def check_group_inference(tp, pipe, batch, metrics, m=8):
+    """The orbit's agreement, the CPU run and the other evaluators.
+
+    - Each orbit element's canonical image within 1e-4 of element 0's and
+      its predicted class equal, for 99% of the batch (the C4 GCNN is
+      exactly rot90-equivariant and the 0.9 crop leaves 11 px on each
+      side at 224 px, so crop and resize commute with rot90).
+    - group_inference on the first m images: acc_element_g as in the port's
+      CPU run, up to the images whose top-2 logit margin is under 2e-3 of
+      the largest logit (logits agree within 1e-3 of it, phase 4).
+    - vanilla_inference's test/acc equals acc_element_0; make_eval_step's
+      metrics are finite."""
+    x, labels = batch["image"], batch["label"]
+    orbit = tp.materialize_orbit(x, 4, sign=1.0)
+    x_c, info = pipe.canonicalize(orbit)
+    logits = pipe.prediction_network(x_c)
+    xc = x_c.reshape(4, GI_B, *x_c.shape[1:])
+    pred = logits.argmax(-1).reshape(4, GI_B)
+    sel = info.group_activations.argmax(-1).reshape(4, GI_B)
+    img_err = (xc - xc[:1]).abs().amax(dim=(0, 2, 3, 4))
+    agree = (img_err < 1e-4) & (pred == pred[:1]).all(0)
+    shift = torch.arange(4, device=sel.device)[:, None]
+    shifted = (sel == (sel[:1] + shift) % 4).all(0)
+    share = agree.float().mean().item()
+    assert share >= 0.99, (share, img_err.max().item())
+
+    small = {"image": x[:m], "label": labels[:m]}
+    gpu = tp.group_inference(pipe, small, num_rotations=4, group_type="rotation")
+    pipe_cpu = copy.deepcopy(pipe).to("cpu")
+    cpu = tp.group_inference(pipe_cpu, {k: v.cpu() for k, v in small.items()},
+                             num_rotations=4, group_type="rotation")
+    lg = logits.reshape(4, GI_B, -1)[:, :m]
+    top2 = lg.topk(2, dim=-1).values
+    unclear = ((top2[..., 0] - top2[..., 1]) < 2e-3 * lg.abs().max()).sum(1)
+    for g in range(4):
+        key = f"test/acc_element_{g}"
+        gap = abs(gpu[key].item() - cpu[key].item()) * m
+        assert gap <= unclear[g].item() + 1e-6, (key, gpu[key], cpu[key], unclear)
+
+    van = tp.vanilla_inference(pipe, batch, GI_CLASSES)
+    assert van["test/acc"].item() == metrics["test/acc_element_0"].item(), (
+        van["test/acc"], metrics["test/acc_element_0"])
+    loss_kwargs = {  # configs/default.yaml:23-26 and :5
+        "task_weight": 1.0, "prior_weight": 100.0, "group_contrast_weight": 0.0,
+        "canonicalization_type": "group_equivariant"}
+    ev = tp.make_eval_step(loss_kwargs)(pipe, batch)
+    assert all(bool(torch.isfinite(v).all()) for v in ev.values()), ev
+    return {"share_orbit_agrees": share,
+            "max_abs_image": img_err.max().item(),
+            "share_selection_shifted": shifted.float().mean().item(),
+            "cpu": {"images": m, "gpu": {k: v.item() for k, v in gpu.items()},
+                    "cpu": {k: v.item() for k, v in cpu.items()},
+                    "unclear_margins": unclear.tolist()},
+            "vanilla_acc": van["test/acc"].item(),
+            "eval_step": {k: v.item() for k, v in ev.items()}}
+
+
+def time_group_inference(tp, pipe, batch):
+    """Times of the sweep and of its parts, and its device profile."""
+    x = batch["image"]
+    sweep = lambda: tp.group_inference(pipe, batch, num_rotations=4,
+                                       group_type="rotation")
+    orbit = tp.materialize_orbit(x, 4, sign=1.0)
+    x_c = pipe.canonicalize(orbit)[0]
+    t_gi = cuda_ms(sweep, reps=5)
+    times = {"group_inference_ms": t_gi,
+             "orbit_img_per_s": orbit.shape[0] / t_gi * 1e3,
+             "orbit_ms": cuda_ms(lambda: tp.materialize_orbit(x, 4, sign=1.0), reps=10),
+             "canonicalize_ms": cuda_ms(lambda: pipe.canonicalize(orbit), reps=5),
+             "resnet50_ms": cuda_ms(lambda: pipe.prediction_network(x_c), reps=5)}
+    log(f"group_inference: {json.dumps(times)}")
+    rows = device_profile(sweep)
+    times["profile"] = {"group_inference": rows}
+    log(f"group_inference profile: {json.dumps(rows[:12] + rows[-1:])}")
+    return times
+
+
+def build_optimized(tp, resnet):
+    """opt_group_equivariant.yaml (D8) and its D4 variant through the port's
+    registry, with the same ConvNetwork weights (seed 5, BatchNorm
+    statistics drawn away from 0 / 1) and reference vector (seed 6), each
+    before the exact preset's ResNet-50 (10 classes, small_images=False as
+    examples/images/classification/train.py:66 sets for 96 px)."""
+    from equiadapt_tpu_torch.utils import config as cfgmod
+
+    in_shape = (OPT_IMAGE, OPT_IMAGE, 3)
+    pipes = {}
+    for path, n in (("optimized_d8", 8), ("optimized_d4", 4)):
+        torch.manual_seed(5)
+        c = opt_canonicalization(cfgmod, n)
+        net = tp.get_image_canonicalization_network(c, in_shape, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(6)
+        canon = tp.get_image_canonicalizer(c, net, in_shape, device=DEVICE,
+                                           generator=gen)
+        random_bn_statistics(canon, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d))
+        pipes[path] = tp.ImageClassifierPipeline(canon, resnet).eval()
+    return pipes
+
+
+def check_optimized_against_cpu(canon, x, x_c, info, m=8):
+    """The first m images against the port's CPU run (plain kernels).
+    Bars (fp32, TF32 off): group activations (cosines) within 1e-4, the
+    vectors ending in a 14,112-term fp32 dot product summed in another
+    order; selections equal where the CPU's top-2 margin exceeds 1e-4 (at
+    least half of the images); canonical images within 1e-5 (the same
+    permutation, or the same static taps, of the same input)."""
+    canon_cpu = copy.deepcopy(canon).to("cpu")
+    xc_r, info_r = canon_cpu.canonicalize(x[:m].cpu())
+    acts = info_r.group_activations
+    top2 = acts.sort(dim=-1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-4
+    sel = info.group_activations[:m].argmax(-1).cpu()
+    same = sel == acts.argmax(-1)
+    assert clear.sum() >= m // 2 and bool(same[clear].all()), (sel, acts)
+    d_act = (info.group_activations[:m].cpu() - acts).abs().max().item()
+    d_img = (x_c[:m].cpu()[same] - xc_r[same]).abs().max().item()
+    assert d_act < 1e-4 and d_img < 1e-5, (d_act, d_img)
+    return {"images": m, "same_element": int(same.sum()), "max_abs_act": d_act,
+            "max_abs_image": d_img}
+
+
+def check_optimized_shift(canon, x):
+    """D4: canonicalizing rot90(x) selects the next rotation of the same
+    coset, for 99% of the batch, at the symmetric crop OPT_SYMMETRIC_CROP."""
+    n = canon.num_rotations
+    crop = canon.input_crop_ratio
+    canon.input_crop_ratio = OPT_SYMMETRIC_CROP
+    try:
+        _, info = canon.canonicalize(x)
+        _, info_rot = canon.canonicalize(torch.rot90(x, 1, dims=(1, 2)).contiguous())
+    finally:
+        canon.input_crop_ratio = crop
+    sel = info.group_activations.argmax(-1)
+    sel_rot = info_rot.group_activations.argmax(-1)
+    ok = (sel_rot % n == (sel % n + 1) % n) & (sel_rot // n == sel // n)
+    share = ok.float().mean().item()
+    assert share >= 0.99, share
+    return {"crop": OPT_SYMMETRIC_CROP, "share_shifted": share}
+
+
+def time_optimized(path, sw, pipe, x):
+    """End-to-end times of one optimized preset, the canonicalizer's parts
+    and its device profile."""
+    canon, resnet = pipe.canonicalizer, pipe.prediction_network
+    t_bare = cuda_ms(lambda: resnet(x), reps=5)
+    t_wrapped = cuda_ms(lambda: resnet(canon.canonicalize(x)[0]), reps=5)
+    t_canon = cuda_ms(lambda: canon.canonicalize(x), reps=5)
+    x_r = canon.transformations_before_canonicalization_network_forward(x)
+    orbit = canon.group_augment(x_r)
+    n = canon.num_rotations
+    idx = canon.canonicalize(x)[1].onehot.reshape(x.shape[0], -1, n).sum(1).argmax(-1)
+    times = {
+        "resnet50_ms": t_bare, "canon_resnet50_ms": t_wrapped,
+        "canonicalize_ms": t_canon,
+        "canonicalize_img_per_s": x.shape[0] / t_canon * 1e3,
+        "overhead_pct": (t_wrapped - t_bare) / t_bare * 100.0,
+        "parts_ms": {
+            "crop_resize": cuda_ms(
+                lambda: canon.transformations_before_canonicalization_network_forward(x)),
+            "orbit": cuda_ms(lambda: canon.group_augment(x_r)),
+            "network": cuda_ms(lambda: canon.canonicalization_network(orbit)),
+            "select": cuda_ms(lambda: sw.rotate_select(
+                x, idx, n, -1.0, canon.padding_mode, canon.warp_mode)),
+        },
+    }
+    log(f"{path}: {json.dumps(times)}")
+    rows = device_profile(lambda: canon.canonicalize(x))
+    times["profile"] = {"canonicalize": rows}
+    log(f"{path} profile canonicalize: {json.dumps(rows[:12] + rows[-1:])}")
+    return times
+
+
 def device_profile(fn, top: int = 25):
     """Device time by kernel name over one call of fn (after a warm-up
     call): [name, ms, calls] rows, largest first, then the total."""
@@ -898,6 +1280,7 @@ def main() -> int:
     from equiadapt_tpu_torch.ops.kernels import _build
     from equiadapt_tpu_torch.ops.kernels import bilinear_warp as bw
     from equiadapt_tpu_torch.ops.kernels import knn as kn
+    from equiadapt_tpu_torch.ops.kernels import orbit as orb
     from equiadapt_tpu_torch.ops.kernels import select_warp as sw
     from equiadapt_tpu_torch.ops.kernels import shear_rotate as sr
 
@@ -925,6 +1308,9 @@ def main() -> int:
     check_continuous_kernels(sr, bw, gen)
     gen_knn = torch.Generator().manual_seed(1)  # leaves `gen`'s images as they were
     knn_checks = check_knn_kernel(kn, gen_knn)
+    gen_orbit = torch.Generator().manual_seed(4)
+    orbit_checks = check_orbit_kernel(orb, gen_orbit)
+    src_log = SourceLog(sw)
 
     presets = build_presets(tp)
     x = smooth_images(gen).to(DEVICE)
@@ -934,8 +1320,10 @@ def main() -> int:
     with torch.no_grad():
         for preset, (canon, resnet) in presets.items():
             sw.reset_launches()
+            src_log.start(preset)
             out = run_path(canon, resnet, x, ys[preset])
             sync()
+            src_log.stop()
             counts = dict(sw.launches)
             launches.update(counts)
             log(f"{preset}: launches {counts}")
@@ -1012,14 +1400,88 @@ def main() -> int:
         times["pointcloud"] = time_pointcloud(pipe, pcs)
         del pipe, pcs
 
+        resnet = presets["exact"][1]
+        orbit_launches = {}
+        gi = build_group_inference(tp, resnet)
+        gen_gi = torch.Generator().manual_seed(5)
+        batch = {"image": smooth_images(gen_gi, GI_B).to(DEVICE),
+                 "label": torch.randint(0, GI_CLASSES, (GI_B,), generator=gen_gi)
+                 .to(DEVICE)}
+        for mod in (sw, orb):
+            mod.reset_launches()
+        src_log.start("group_inference")
+        metrics = tp.group_inference(gi, batch, num_rotations=4,
+                                     group_type="rotation")
+        sync()
+        src_log.stop()
+        counts = {**sw.launches, **orb.launches}
+        orbit_launches["group_inference"] = counts
+        launches.update({f"group_inference:{k}": v for k, v in counts.items()})
+        log(f"group_inference: launches {counts}, select sources "
+            f"{src_log.select_launches('group_inference')}")
+        assert counts.get("rot90_flip_orbit/float32") == 1, counts
+        assert src_log.select_launches("group_inference").get(
+            "select_planes/float32,1 source", 0) >= 1, src_log.rows
+        assert set(metrics) == {"test/acc_element_0", "test/acc_element_1",
+                                "test/acc_element_2", "test/acc_element_3",
+                                "test/group_acc", "test/acc"}, metrics
+        assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+        checks["group_inference"] = check_group_inference(tp, gi, batch, metrics)
+        checks["group_inference"]["metrics"] = {k: v.item() for k, v in metrics.items()}
+        log(f"group_inference: {json.dumps(checks['group_inference'])}")
+        times["group_inference"] = time_group_inference(tp, gi, batch)
+        del gi, batch, metrics
+
+        opt = build_optimized(tp, resnet)
+        gen_opt = torch.Generator().manual_seed(6)
+        x_opt = lowfreq_images(gen_opt, b=OPT_B, size=OPT_IMAGE).to(DEVICE)
+        for path, pipe in opt.items():
+            canon = pipe.canonicalizer
+            for mod in (sw, orb):
+                mod.reset_launches()
+            src_log.start(path)
+            x_c, info = canon.canonicalize(x_opt)
+            logits = pipe.prediction_network(x_c)
+            sync()
+            src_log.stop()
+            counts = {**sw.launches, **orb.launches}
+            orbit_launches[path] = counts
+            sources = src_log.select_launches(path)
+            launches.update({f"{path}:{k}": v for k, v in counts.items()})
+            log(f"{path}: launches {counts}, select sources {sources}")
+            if canon.num_rotations == 8:  # static-warp orbit, 2-source select
+                assert "rot90_flip_orbit/float32" not in counts, counts
+                assert sources.get("select_planes/float32", 0) >= 1, sources
+            else:  # K4 orbit, 1-source select
+                assert counts.get("rot90_flip_orbit/float32") == 1, counts
+                assert sources.get("select_planes/float32,1 source", 0) >= 1, sources
+            G = 2 * canon.num_rotations
+            assert x_c.shape == x_opt.shape and logits.shape == (OPT_B, GI_CLASSES)
+            assert info.group_activations.shape == (OPT_B, G)
+            assert info.extras["vector_out"].shape == (G * OPT_B, 128)
+            for t in (x_c, logits, info.group_activations, info.extras["vector_out"]):
+                assert bool(torch.isfinite(t).all()), path
+            top2 = info.group_activations.sort(dim=-1).values[:, -2:]
+            checks[path] = {
+                "cpu": check_optimized_against_cpu(canon, x_opt, x_c, info),
+                "min_top2_margin": (top2[:, 1] - top2[:, 0]).min().item()}
+            if canon.num_rotations == 4:
+                checks[path]["rot90"] = check_optimized_shift(canon, x_opt)
+            log(f"{path}: {json.dumps(checks[path])}")
+            del x_c, info, logits
+            times[path] = time_optimized(path, sw, pipe, x_opt)
+        del opt, x_opt, resnet
+
         kernels = []
         gen_dev = torch.Generator(device=DEVICE).manual_seed(3)
+        # K1 launches by source count over every path (K1a: one source)
+        k1_launches = {**launches, **src_log.select_launches()}
         for dtype in (torch.float32, torch.bfloat16):
             for kname in TPU_KERNEL:
                 kernels.append(kernel_entry(sw, kname, dtype, gen, bwidth,
-                                            launches))
+                                            k1_launches))
             kernels.append(kernel_entry(sw, "select_planes", dtype, gen, bwidth,
-                                        launches, one_source=True))
+                                        k1_launches, one_source=True))
         for dtype in (torch.float32, torch.bfloat16):
             for kname in CONT_KERNEL:
                 tag = str(dtype).removeprefix("torch.")
@@ -1029,6 +1491,8 @@ def main() -> int:
                 kernels.append(continuous_entry(sr, bw, kname, dtype, gen_dev,
                                                 bwidth, main_launches))
         kernels += knn_entries(kn, gen_knn, bwidth, rate, pc_counts)
+        kernels += orbit_entries(orb, gen_orbit, bwidth, orbit_launches)
+        checks["orbit"] = orbit_checks
     results.update(launches=launches, checks=checks, times=times,
                    kernels=kernels)
     if args.out:

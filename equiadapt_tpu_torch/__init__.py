@@ -17,7 +17,15 @@ Ported so far, eval only:
   prediction network -> scalar invert (the same warp kernels);
 * the SO(3) point-cloud path: VNSmall frame estimation (kNN graph by
   kernel K8) -> Gram-Schmidt -> x @ R^T -> DGCNN (kNN graphs by K8) ->
-  point-valued invert y @ R.
+  point-valued invert y @ R;
+* the optimized (orbit-scoring) discrete canonicalizer: the batch's
+  |G|-orbit (kernel K4 for quarter turns, static warps otherwise) ->
+  `ConvNetwork` -> cosine scores against a reference vector -> select
+  (kernel K1);
+* the image-classification pipeline's eval half (`ImageClassifierPipeline`,
+  `classification_loss`, `make_eval_step`, `vanilla_inference`,
+  `group_inference`, whose orbit is K4), with the config taxonomy and the
+  registries.
 """
 
 from equiadapt_tpu_torch.common import (
@@ -34,15 +42,29 @@ from equiadapt_tpu_torch.common import (
 )
 from equiadapt_tpu_torch.images import (
     ContinuousGroupImageCanonicalization,
+    ConvNetwork,
     DiscreteGroupImageCanonicalization,
     EquivariantNetwork,
     GroupEquivariantImageCanonicalization,
+    OptimizedGroupEquivariantImageCanonicalization,
+    ResNet18Network,
     SteerableImageCanonicalization,
     SteerableNetwork,
+    WideResNet50Network,
+    WideResNet101Network,
+    optimization_specific_loss,
 )
 from equiadapt_tpu_torch.models import DGCNN, PointNet, ResNet18, ResNet50
 from equiadapt_tpu_torch.ops.group_action import get_action_on_image_features
-from equiadapt_tpu_torch.pipelines import PointcloudClassificationPipeline
+from equiadapt_tpu_torch.ops.kernels.orbit import materialize_orbit, rot90_flip_orbit
+from equiadapt_tpu_torch.pipelines import (
+    ImageClassifierPipeline,
+    PointcloudClassificationPipeline,
+    classification_loss,
+    group_inference,
+    make_eval_step,
+    vanilla_inference,
+)
 from equiadapt_tpu_torch.pointcloud import (
     ContinuousGroupPointcloudCanonicalization,
     EquivariantPointcloudCanonicalization,
@@ -58,7 +80,17 @@ from equiadapt_tpu_torch.pointcloud import (
     graph_feature_cross,
     mean_pool,
 )
-from equiadapt_tpu_torch.utils import load_flax_variables
+from equiadapt_tpu_torch.utils import (
+    Config,
+    compose_config,
+    get_image_canonicalization_network,
+    get_image_canonicalizer,
+    get_image_prediction_network,
+    get_pointcloud_canonicalizer,
+    get_pointcloud_prediction_network,
+    load_flax_variables,
+    load_yaml,
+)
 
 __all__ = [
     "BaseCanonicalization",
@@ -73,7 +105,13 @@ __all__ = [
     "LieParameterization",
     "DiscreteGroupImageCanonicalization",
     "GroupEquivariantImageCanonicalization",
+    "OptimizedGroupEquivariantImageCanonicalization",
+    "optimization_specific_loss",
     "EquivariantNetwork",
+    "ConvNetwork",
+    "ResNet18Network",
+    "WideResNet50Network",
+    "WideResNet101Network",
     "ContinuousGroupImageCanonicalization",
     "SteerableImageCanonicalization",
     "SteerableNetwork",
@@ -95,6 +133,21 @@ __all__ = [
     "VNStdFeature",
     "mean_pool",
     "PointcloudClassificationPipeline",
+    "ImageClassifierPipeline",
+    "classification_loss",
+    "make_eval_step",
+    "vanilla_inference",
+    "group_inference",
     "get_action_on_image_features",
+    "rot90_flip_orbit",
+    "materialize_orbit",
+    "Config",
+    "compose_config",
+    "load_yaml",
+    "get_image_canonicalization_network",
+    "get_image_canonicalizer",
+    "get_image_prediction_network",
+    "get_pointcloud_canonicalizer",
+    "get_pointcloud_prediction_network",
     "load_flax_variables",
 ]

@@ -4,15 +4,30 @@ from equiadapt_tpu_torch.images.canonicalization import (
     ContinuousGroupImageCanonicalization,
     DiscreteGroupImageCanonicalization,
     GroupEquivariantImageCanonicalization,
+    OptimizedGroupEquivariantImageCanonicalization,
     SteerableImageCanonicalization,
+    optimization_specific_loss,
 )
-from equiadapt_tpu_torch.images.networks import EquivariantNetwork, SteerableNetwork
+from equiadapt_tpu_torch.images.networks import (
+    ConvNetwork,
+    EquivariantNetwork,
+    ResNet18Network,
+    SteerableNetwork,
+    WideResNet50Network,
+    WideResNet101Network,
+)
 
 __all__ = [
     "ContinuousGroupImageCanonicalization",
     "DiscreteGroupImageCanonicalization",
     "GroupEquivariantImageCanonicalization",
+    "OptimizedGroupEquivariantImageCanonicalization",
     "SteerableImageCanonicalization",
+    "optimization_specific_loss",
+    "ConvNetwork",
     "EquivariantNetwork",
+    "ResNet18Network",
     "SteerableNetwork",
+    "WideResNet50Network",
+    "WideResNet101Network",
 ]

@@ -7,6 +7,8 @@ from equiadapt_tpu_torch.images.canonicalization.continuous_group import (
 from equiadapt_tpu_torch.images.canonicalization.discrete_group import (
     DiscreteGroupImageCanonicalization,
     GroupEquivariantImageCanonicalization,
+    OptimizedGroupEquivariantImageCanonicalization,
+    optimization_specific_loss,
 )
 
 __all__ = [
@@ -14,4 +16,6 @@ __all__ = [
     "SteerableImageCanonicalization",
     "DiscreteGroupImageCanonicalization",
     "GroupEquivariantImageCanonicalization",
+    "OptimizedGroupEquivariantImageCanonicalization",
+    "optimization_specific_loss",
 ]

@@ -1,11 +1,16 @@
 """Discrete-group (C_n / D_n) image canonicalizers, eval path.
 
 Counterpart of `equiadapt_tpu/images/canonicalization/discrete_group.py`
-(`DiscreteGroupImageCanonicalization`, `GroupEquivariantImageCanonicalization`).
-NHWC in and out. `canonicalize` returns `(x_canon, info)`:
+(`DiscreteGroupImageCanonicalization`, `GroupEquivariantImageCanonicalization`,
+`OptimizedGroupEquivariantImageCanonicalization`,
+`optimization_specific_loss`). NHWC in and out. `canonicalize` returns
+`(x_canon, info)`:
 
 1. crop and resize the batch for the energy network;
-2. (B, |G|) group activations, kept in fp32;
+2. (B, |G|) group activations, kept in fp32: the output fiber of a
+   group-equivariant network, or, in the optimized variant, the cosine
+   score of each element of the batch's |G|-orbit (kernel K4 for quarter
+   turns) against a reference vector;
 3. hard argmax selection;
 4. the D_n reflection blend;
 5. the rotate-select of each sample by its element, through kernel K1.
@@ -14,17 +19,18 @@ NHWC in and out. `canonicalize` returns `(x_canon, info)`:
 regular rep).
 
 Not ported yet: training (the `rotate_discrete` blend with a
-straight-through one-hot), co-canonicalized targets (boxes and masks) and
-the optimized (orbit-scoring) canonicalizer; see ROADMAP.md queue 1. The
-JAX package's NCHW-spine serving branch is a TPU layout path with no
-counterpart here.
+straight-through one-hot) and co-canonicalized targets (boxes and masks);
+see ROADMAP.md queue 1. The optimized variant's `orbit_sharding` (a mesh
+constraint) waits for `parallel/` (ROADMAP.md item 16). The JAX package's
+NCHW-spine serving branch is a TPU layout path with no counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from equiadapt_tpu_torch.common.base import BaseCanonicalization
@@ -34,14 +40,22 @@ from equiadapt_tpu_torch.common.info import (
 )
 from equiadapt_tpu_torch.common.selector import select_onehot
 from equiadapt_tpu_torch.ops.group_action import get_action_on_image_features
+from equiadapt_tpu_torch.ops.kernels.orbit import materialize_orbit
 from equiadapt_tpu_torch.ops.kernels.select_warp import rotate_select
-from equiadapt_tpu_torch.ops.warp import crop_and_resize, group_angles, hflip
+from equiadapt_tpu_torch.ops.warp import (
+    crop_and_resize,
+    group_angles,
+    hflip,
+    rotate_discrete,
+)
 
 Tensor = torch.Tensor
 
 __all__ = [
     "DiscreteGroupImageCanonicalization",
     "GroupEquivariantImageCanonicalization",
+    "OptimizedGroupEquivariantImageCanonicalization",
+    "optimization_specific_loss",
 ]
 
 _TRAINING = (
@@ -104,8 +118,8 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         return crop_and_resize(x, self.in_shape, self.input_crop_ratio,
                                self.resize_shape)
 
-    def get_group_activations(self, x: Tensor) -> Tensor:
-        """Subclass hook: (B, |G|) activations."""
+    def get_group_activations(self, x: Tensor) -> Tuple[Tensor, Dict[str, Any]]:
+        """Subclass hook: ((B, |G|) activations, extras dict)."""
         raise NotImplementedError
 
     def groupactivations_to_groupelement(
@@ -130,7 +144,8 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
 
     def canonicalize(self, x: Tensor, targets: Optional[Any] = None, *,
                      training: bool = False, **kwargs: Any):
-        """Map an NHWC batch to canonical pose: `(x_canon, info)`."""
+        """Map an NHWC batch to canonical pose: `(x_canon, info)`. Keyword
+        arguments go to the subclass's `get_group_activations`."""
         if training or self.training:
             raise NotImplementedError(_TRAINING)
         if targets is not None:
@@ -141,7 +156,8 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         in_dtype = x.dtype
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        acts = self.get_group_activations(x).float()  # selection stays fp32
+        acts, extras = self.get_group_activations(x, **kwargs)
+        acts = acts.float()  # selection stays fp32
         element, onehot = self.groupactivations_to_groupelement(acts)
         if element.reflection is not None:
             r = element.reflection[:, None, None, None].to(x.dtype)
@@ -161,6 +177,7 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
             element=element,
             num_rotations=self.num_rotations,
             group_type=self.group_type,
+            extras=extras,
         )
         return x, info
 
@@ -188,6 +205,105 @@ class GroupEquivariantImageCanonicalization(DiscreteGroupImageCanonicalization):
     activation vector. `group_type` / `num_rotations` must match the
     network's."""
 
-    def get_group_activations(self, x: Tensor) -> Tensor:
+    def get_group_activations(self, x: Tensor) -> Tuple[Tensor, Dict[str, Any]]:
         x = self.transformations_before_canonicalization_network_forward(x)
-        return self.canonicalization_network(x)
+        return self.canonicalization_network(x), {}
+
+
+class OptimizedGroupEquivariantImageCanonicalization(
+        DiscreteGroupImageCanonicalization):
+    """Energy from orbit scoring with a plain (non-equivariant) network.
+
+    The batch's |G|-orbit is materialized once, group-major (G * B images,
+    `ops.kernels.orbit.materialize_orbit`: kernel K4 when every element is a
+    quarter turn of a square image, static warps otherwise); the network
+    maps it to (G * B, out_vector_size) vectors, and element g of sample b
+    scores the cosine of its vector with `reference_vector`, a (1, D)
+    parameter drawn from N(0, 1) (fixed unless `learn_ref_vec`; the port is
+    eval only). acts = scores.reshape(G, B).T.
+
+    With `artifact_err_wt` > 0 each orbit image is also rotated by a random
+    element and back (`rotate_discrete`), and the network's vectors of those
+    dummies go to `info.extras["vector_out_dummy"]` for
+    `optimization_specific_loss`. The random elements are drawn from the
+    `generator` that `canonicalize` is given, or handed in as `artifact_idx`
+    ((G * B,) integers in [0, num_rotations)).
+
+    `orbit_sharding` (a mesh constraint of the JAX package) waits for
+    `parallel/` (ROADMAP.md item 16): only None is taken.
+    """
+
+    def __init__(self, canonicalization_network: nn.Module,
+                 in_shape: Tuple[int, int, int], *, out_vector_size: int = 128,
+                 learn_ref_vec: bool = False, artifact_err_wt: float = 0.0,
+                 orbit_sharding: Optional[Tuple[str, str]] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 **kwargs: Any):
+        if orbit_sharding is not None:
+            raise NotImplementedError(
+                "orbit_sharding is a mesh constraint of parallel/, not ported "
+                "yet (ROADMAP.md item 16)")
+        super().__init__(canonicalization_network, in_shape, **kwargs)
+        self.out_vector_size = out_vector_size
+        self.learn_ref_vec = learn_ref_vec
+        self.artifact_err_wt = artifact_err_wt
+        self.reference_vector = nn.Parameter(
+            torch.randn(1, out_vector_size, generator=generator, device=device),
+            requires_grad=learn_ref_vec)
+
+    def group_augment(self, x: Tensor) -> Tensor:
+        """(B, h, w, C) -> (|G| * B, h, w, C) orbit, group-major."""
+        return materialize_orbit(
+            x, self.num_rotations, group_type=self.group_type,
+            padding_mode=self.padding_mode, mode=self.warp_mode)
+
+    def get_group_activations(
+        self, x: Tensor, generator: Optional[torch.Generator] = None,
+        artifact_idx: Optional[Tensor] = None,
+    ) -> Tuple[Tensor, Dict[str, Any]]:
+        x = self.transformations_before_canonicalization_network_forward(x)
+        B = x.shape[0]
+        G = self.num_group
+        n = self.num_rotations
+        x_aug = self.group_augment(x)  # (G * B, h, w, C)
+        vector_out = self.canonicalization_network(x_aug)
+        extras = {"vector_out": vector_out}
+        if self.artifact_err_wt:
+            # a random rotation and its inverse isolate the warp artifacts
+            if artifact_idx is None:
+                if generator is None:
+                    raise ValueError(
+                        "artifact_err_wt > 0 draws random rotations: pass "
+                        "generator= or artifact_idx= to canonicalize")
+                artifact_idx = torch.randint(0, n, (x_aug.shape[0],),
+                                             generator=generator,
+                                             device=generator.device)
+            oh = F.one_hot(artifact_idx.to(x_aug.device).long(), n).to(x_aug.dtype)
+            x_dummy = rotate_discrete(x_aug, oh, n, -1.0, self.padding_mode)
+            x_dummy = rotate_discrete(x_dummy, oh, n, 1.0, self.padding_mode)
+            extras["vector_out_dummy"] = self.canonicalization_network(x_dummy)
+        ref = self.reference_vector
+        vn = vector_out / (
+            torch.linalg.vector_norm(vector_out, dim=-1, keepdim=True) + 1e-12)
+        rn = ref / (torch.linalg.vector_norm(ref, dim=-1, keepdim=True) + 1e-12)
+        scalar = torch.sum(vn * rn, dim=-1)  # (G * B,)
+        return scalar.reshape(G, B).T, extras  # (B, G), group-major unflatten
+
+
+def optimization_specific_loss(info: DiscreteCanonicalizationInfo, *,
+                               out_vector_size: int,
+                               artifact_err_wt: float = 0.0) -> Tensor:
+    """Orthogonality (+ rotation-artifact) loss of the optimized
+    canonicalizer: the mean |V V^T| over the off-diagonal pairs of each
+    sample's orbit vectors, plus `artifact_err_wt` times the MSE between the
+    dummy and the clean vectors."""
+    vectors = info.extras["vector_out"]  # (G * B, D)
+    G = info.num_group
+    v = vectors.reshape(G, -1, out_vector_size).transpose(0, 1)  # (B, G, D)
+    distances = torch.einsum("bgd,bhd->bgh", v, v)
+    mask = 1.0 - torch.eye(G, dtype=distances.dtype, device=distances.device)
+    loss = torch.mean(torch.abs(distances * mask))
+    if artifact_err_wt:
+        dummy = info.extras["vector_out_dummy"]
+        loss = loss + artifact_err_wt * torch.mean((dummy - vectors) ** 2)
+    return loss

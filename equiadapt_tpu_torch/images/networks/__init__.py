@@ -1,5 +1,12 @@
-"""Group-equivariant and steerable canonicalization networks and their layers."""
+"""Group-equivariant, steerable and plain (vector-output) canonicalization
+networks and their layers."""
 
+from equiadapt_tpu_torch.images.networks.conv import (
+    ConvNetwork,
+    ResNet18Network,
+    WideResNet50Network,
+    WideResNet101Network,
+)
 from equiadapt_tpu_torch.images.networks.equivariant import (
     EquivariantNetwork,
     FiberBatchNorm,
@@ -19,6 +26,10 @@ from equiadapt_tpu_torch.images.networks.steerable import (
 )
 
 __all__ = [
+    "ConvNetwork",
+    "ResNet18Network",
+    "WideResNet50Network",
+    "WideResNet101Network",
     "EquivariantNetwork",
     "FiberBatchNorm",
     "fiber_mean_activations",

@@ -7,11 +7,15 @@ rho expanded in Gaussian rings with one learnable complex coefficient per
 (out field, in field, ring); the parameters keep the Flax names and shapes
 (`w_{fo}_{fi}`, (J, 2)), so weights carry across as a copy.
 
-The real kernel is assembled by one matrix product of the concatenated
-coefficients with a host-built assembly matrix (float32 entries of the
-float64-built ring basis, placed and signed as the JAX module's block
-adds), then one `F.conv2d` runs on NCHW with OIHW weights. Takes NHWC like
-the JAX module, runs NCHW inside.
+The real kernel is assembled from the JAX module's blocks (k_re = sum_j
+a_j B_re - b_j B_im, k_im = sum_j a_j B_im + b_j B_re, placed and signed
+as the real form of the complex product): every (out, in) channel pair of
+the kernel is one block entry, so the kernel is one batched product of
+each pair's 2 J coefficients with its signed ring basis, both gathered by
+a host-built plan. Work and memory grow with the kernel's size times 2 J,
+not with its product with the number of coefficients. Then one
+`F.conv2d` runs on NCHW with OIHW weights. Takes NHWC like the JAX module,
+runs NCHW inside.
 
 Dtypes follow the JAX module: a convolution runs in its input's dtype
 (fp32 parameters cast), and `NormBatchNorm` multiplies by its fp32 scale,
@@ -79,54 +83,60 @@ def _coefficient_names(in_orders, out_orders) -> List[Tuple[str, int, int]]:
 
 
 @functools.lru_cache(maxsize=None)
-def _assembly_matrix(in_orders: Tuple[int, ...], out_orders: Tuple[int, ...],
-                     kernel_size: int) -> np.ndarray:
-    """(P, Cout * Cin * K * K) float32 A with vec_OIHW(kernel) = theta @ A,
-    theta the concatenated (J, 2) coefficients in `_coefficient_names` order.
+def _assembly_plan(in_orders: Tuple[int, ...], out_orders: Tuple[int, ...],
+                   kernel_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(index (Cout * Cin, 2 J) int64, weights (Cout * Cin, 2 J, K * K)
+    float32) with, for the OIHW kernel's channel pair p = out * Cin + in,
+    kernel[p] = sum_t theta[index[p, t]] * weights[p, t]: theta the
+    concatenated (J, 2) coefficients in `_coefficient_names` order with a
+    zero appended, which the padding (rings past a block's J) points at.
 
-    Per block, with (a_j, b_j) the coefficient and (B_re, B_im) the basis,
-    k_re = sum_j a_j B_re - b_j B_im and k_im = sum_j a_j B_im + b_j B_re,
-    placed as the real form of the complex product k * f:
-    (0 -> 0) k_re; (0 -> m) [k_re, k_im]; (m -> 0) [k_re, -k_im];
-    (m -> m') [[k_re, k_im], [-k_im, k_re]] over (in re/im, out re/im).
+    Every channel pair is one entry of one block: the real (re) or the
+    imaginary (im) part of that block's complex kernel, signed as the real
+    form of the complex product; re draws (a_j, B_re) and (b_j, -B_im), im
+    draws (a_j, B_im) and (b_j, B_re).
     """
     K = kernel_size
-    cin_of, ci = [], 0
-    for m in in_orders:
-        cin_of.append(ci)
-        ci += 1 if m == 0 else 2
-    cout_of, co = [], 0
-    for m in out_orders:
-        cout_of.append(co)
-        co += 1 if m == 0 else 2
-    shape = (K, K, _field_channels(in_orders), _field_channels(out_orders))
-    rows = []
-    for _, fi, fo in _coefficient_names(in_orders, out_orders):
+    Cin, Cout = _field_channels(in_orders), _field_channels(out_orders)
+    cin_of = np.cumsum([0] + [1 if m == 0 else 2 for m in in_orders])
+    cout_of = np.cumsum([0] + [1 if m == 0 else 2 for m in out_orders])
+    names = _coefficient_names(in_orders, out_orders)
+    bases = [_harmonic_basis(K, out_orders[fo] - in_orders[fi])
+             for _, fi, fo in names]
+    J = max(b.shape[0] for b in bases)
+    index = np.full((Cout * Cin, 2 * J), sum(2 * b.shape[0] for b in bases),
+                    np.int64)
+    weights = np.zeros((Cout * Cin, 2 * J, K * K), np.float32)
+    offset = 0
+    for (_, fi, fo), b in zip(names, bases):
+        nj = b.shape[0]
+        b_re = b[..., 0].reshape(nj, K * K)
+        b_im = b[..., 1].reshape(nj, K * K)
         mi, mo = in_orders[fi], out_orders[fo]
-        basis = _harmonic_basis(K, mo - mi)  # (J, K, K, 2)
-        ci, co = cin_of[fi], cout_of[fo]
-        for j in range(basis.shape[0]):
-            b_re, b_im = basis[j, ..., 0], basis[j, ..., 1]
-            # (k_re, k_im) contributed by a_j and by b_j
-            for k_re, k_im in ((b_re, b_im), (-b_im, b_re)):
-                hwio = np.zeros(shape, np.float32)
-                hwio[:, :, ci, co] = k_re
-                if mi == 0 and mo != 0:
-                    hwio[:, :, ci, co + 1] = k_im
-                elif mi != 0 and mo == 0:
-                    hwio[:, :, ci + 1, co] = -k_im
-                elif mi != 0:
-                    hwio[:, :, ci + 1, co] = -k_im
-                    hwio[:, :, ci, co + 1] = k_im
-                    hwio[:, :, ci + 1, co + 1] = k_re
-                rows.append(hwio.transpose(3, 2, 0, 1).reshape(-1))
-    return np.stack(rows)
+        co, ci = cout_of[fo], cin_of[fi]
+        entries = [(co, ci, "re", 1.0)]
+        if mi == 0 and mo != 0:  # complex kernel times a real input
+            entries.append((co + 1, ci, "im", 1.0))
+        elif mi != 0 and mo == 0:  # real part of the complex product
+            entries.append((co, ci + 1, "im", -1.0))
+        elif mi != 0:  # the complex product
+            entries += [(co, ci + 1, "im", -1.0), (co + 1, ci, "im", 1.0),
+                        (co + 1, ci + 1, "re", 1.0)]
+        for o, i, part, sign in entries:
+            p = o * Cin + i
+            index[p, :2 * nj] = offset + np.arange(2 * nj)  # a_0, b_0, a_1, ...
+            if part == "re":
+                weights[p, 0:2 * nj:2], weights[p, 1:2 * nj:2] = sign * b_re, -sign * b_im
+            else:
+                weights[p, 0:2 * nj:2], weights[p, 1:2 * nj:2] = sign * b_im, sign * b_re
+        offset += 2 * nj
+    return index, weights
 
 
 class SteerableConv(nn.Module):
     """Equivariant convolution between collections of SO(2) fields, on
-    NCHW tensors. Parameters `w_{fo}_{fi}` (J, 2) as in Flax; the OIHW
-    kernel is `theta @ assembly`."""
+    NCHW tensors. Parameters `w_{fo}_{fi}` (J, 2) as in Flax; `kernel()`
+    assembles the OIHW kernel from them (`_assembly_plan`)."""
 
     def __init__(self, in_orders: Sequence[int], out_orders: Sequence[int],
                  kernel_size: int, padding: int = 0, device="cuda",
@@ -145,15 +155,19 @@ class SteerableConv(nn.Module):
             nn.init.normal_(p, 0.0, std, generator=generator)
             self.register_parameter(name, p)
             self._names.append(name)
-        A = _assembly_matrix(self.in_orders, self.out_orders, kernel_size)
-        self.register_buffer("assembly", torch.from_numpy(A).to(device),
+        index, weights = _assembly_plan(self.in_orders, self.out_orders,
+                                        kernel_size)
+        self.register_buffer("_index", torch.from_numpy(index).to(device),
+                             persistent=False)
+        self.register_buffer("_weights", torch.from_numpy(weights).to(device),
                              persistent=False)
 
     def kernel(self) -> Tensor:
         """The fp32 OIHW kernel."""
-        theta = torch.cat([getattr(self, n).reshape(-1) for n in self._names])
+        theta = torch.cat([getattr(self, n).reshape(-1) for n in self._names]
+                          + [self._weights.new_zeros(1)])
         K = self.kernel_size
-        return (theta @ self.assembly).reshape(
+        return torch.einsum("pt,ptq->pq", theta[self._index], self._weights).reshape(
             _field_channels(self.out_orders), _field_channels(self.in_orders), K, K)
 
     def forward(self, x: Tensor) -> Tensor:

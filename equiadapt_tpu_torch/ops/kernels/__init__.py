@@ -7,4 +7,6 @@ rotate-select-roll (K2), from `csrc/select_warp.cu`.
 `bilinear_warp`: the exact bilinear rotation warp (K7), from
 `csrc/bilinear_warp.cu`.
 `knn`: the fused k-nearest-neighbour indices (K8), from `csrc/knn.cu`.
+`orbit`: the exact D4 orbit (K4), from `csrc/orbit.cu`, and
+`materialize_orbit`, the |G|-orbit of the orbit-scoring paths.
 """

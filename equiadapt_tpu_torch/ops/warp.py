@@ -13,8 +13,9 @@ warps take and give (B, C, H, W), the layout the select kernels read.
   products stay `torch.einsum`, as the JAX package leaves them to XLA; V is
   rounded to the payload dtype between them, as in JAX.
 * `rotate_select_fast` and `rotate_discrete` are the JAX package's pure
-  formulations of the hard select and of the one-hot blend. The port's
-  eval path does not call them; they are references for the tests.
+  formulations of the hard select and of the one-hot blend, references for
+  the tests; the optimized canonicalizer's artifact dummies (off by
+  default) take `rotate_discrete`, as in JAX.
 * `bilinear_sample` is the direct four-tap bilinear sampler at per-pixel
   coordinates (the JAX taps form; its "slab" form is a TPU index-traffic
   variant with the same values and has no counterpart here). It is the
@@ -45,6 +46,7 @@ __all__ = [
     "center_crop",
     "resize",
     "crop_and_resize",
+    "crop_and_resize_size",
 ]
 
 
@@ -367,6 +369,18 @@ def crop_and_resize(x: Tensor, in_shape: Tuple[int, int, int],
     if resize_shape is not None:
         x = resize(x, (resize_shape, resize_shape))
     return x
+
+
+def crop_and_resize_size(in_shape: Tuple[int, int, int],
+                         input_crop_ratio: float,
+                         resize_shape: Optional[int]) -> Tuple[int, int]:
+    """(H, W) of `crop_and_resize`'s output for images of `in_shape`."""
+    H, W = in_shape[0], in_shape[1]
+    if in_shape[-1] == 1:
+        return H, W
+    if resize_shape is not None:
+        return resize_shape, resize_shape
+    return math.ceil(H * input_crop_ratio), math.ceil(W * input_crop_ratio)
 
 
 def bilinear_sample(x: Tensor, src_x: Tensor, src_y: Tensor,

@@ -1,5 +1,42 @@
-"""Utilities: weights carried across from the JAX package."""
+"""Utilities: the config taxonomy, the registries and weights carried across
+from the JAX package."""
 
+from equiadapt_tpu_torch.utils.config import (
+    CanonicalizationConfig,
+    CheckpointConfig,
+    Config,
+    DatasetConfig,
+    ExperimentConfig,
+    NetworkHyperparams,
+    PredictionConfig,
+    TrainingLossConfig,
+    compose_config,
+    load_yaml,
+)
 from equiadapt_tpu_torch.utils.jax_weights import load_flax_variables
+from equiadapt_tpu_torch.utils.registry import (
+    get_image_canonicalization_network,
+    get_image_canonicalizer,
+    get_image_prediction_network,
+    get_pointcloud_canonicalizer,
+    get_pointcloud_prediction_network,
+)
 
-__all__ = ["load_flax_variables"]
+__all__ = [
+    "CanonicalizationConfig",
+    "CheckpointConfig",
+    "Config",
+    "DatasetConfig",
+    "ExperimentConfig",
+    "NetworkHyperparams",
+    "PredictionConfig",
+    "TrainingLossConfig",
+    "compose_config",
+    "load_yaml",
+    "load_flax_variables",
+    "get_image_canonicalization_network",
+    "get_image_canonicalizer",
+    "get_image_prediction_network",
+    "get_pointcloud_canonicalizer",
+    "get_pointcloud_prediction_network",
+]

@@ -15,7 +15,10 @@ Flax gives their counterparts, so a leaf's path names its torch owner:
   (J, 2), `NormNonlinearity` `bias_{fi}` (1,), `NormBatchNorm` `scale`
   (params) and `norm_sq` (batch_stats). `NormBatchNorm` is not a torch
   BatchNorm, so its leaves never take the BatchNorm renaming;
-* `VNBilinear` `bilinear` (C1, C2, out) copied as it is.
+* `VNBilinear` `bilinear` (C1, C2, out) copied as it is;
+* a raw parameter of any other owner, copied as it is when the owner has a
+  parameter of that name (the optimized canonicalizer's own
+  `reference_vector` (1, D), beside its network's leaves).
 
 It raises on a leaf it cannot place and on a torch parameter or persistent
 buffer left unfilled (other than BatchNorm's `num_batches_tracked`).
@@ -39,7 +42,7 @@ from equiadapt_tpu_torch.images.networks.steerable import (
 )
 from equiadapt_tpu_torch.pointcloud.vector_neurons import VNBilinear
 
-__all__ = ["load_flax_variables"]
+__all__ = ["load_flax_variables", "flax_placements"]
 
 _BN_NAMES = {
     ("params", "scale"): "weight",
@@ -85,14 +88,25 @@ def _convert(owner: nn.Module, collection: str, leaf: str, value: np.ndarray):
     elif isinstance(owner, NormBatchNorm):
         if (collection, leaf) in (("params", "scale"), ("batch_stats", "norm_sq")):
             return leaf, value
+    elif collection == "params" and leaf in dict(owner.named_parameters(recurse=False)):
+        return leaf, value
     raise KeyError(
         f"no place for Flax leaf {collection}/{leaf} in {type(owner).__name__}"
     )
 
 
-def load_flax_variables(module: nn.Module,
-                        variables: Mapping[str, Any]) -> nn.Module:
-    """Fill `module` from a Flax variable tree of numpy arrays; returns it."""
+def _targets(module: nn.Module) -> Dict[str, torch.Tensor]:
+    return {
+        n: t for n, t in module.state_dict(keep_vars=True).items()
+        if not n.endswith("num_batches_tracked")
+    }
+
+
+def flax_placements(module: nn.Module,
+                    variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """{torch tensor name: array in torch layout} for every Flax leaf,
+    after checking that every leaf has a tensor of its shape and every
+    tensor a leaf; raises otherwise. Nothing is copied."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unknown Flax collections: {sorted(unknown)}")
@@ -109,23 +123,28 @@ def load_flax_variables(module: nn.Module,
             name, array = _convert(owner, collection, leaf, value)
             filled[".".join(scope + [name])] = array
 
-    targets = {
-        n: t for n, t in module.state_dict(keep_vars=True).items()
-        if not n.endswith("num_batches_tracked")
-    }
+    targets = _targets(module)
     missing = sorted(set(targets) - set(filled))
     if missing:
         raise KeyError(f"torch tensors left unfilled: {missing}")
     extra = sorted(set(filled) - set(targets))
     if extra:
         raise KeyError(f"Flax leaves with no torch tensor: {extra}")
+    for name, array in filled.items():
+        if tuple(targets[name].shape) != array.shape:
+            raise ValueError(
+                f"{name}: torch shape {tuple(targets[name].shape)}, "
+                f"Flax shape {array.shape}"
+            )
+    return filled
+
+
+def load_flax_variables(module: nn.Module,
+                        variables: Mapping[str, Any]) -> nn.Module:
+    """Fill `module` from a Flax variable tree of numpy arrays; returns it."""
+    filled = flax_placements(module, variables)
+    targets = _targets(module)
     with torch.no_grad():
         for name, array in filled.items():
-            target = targets[name]
-            if tuple(target.shape) != array.shape:
-                raise ValueError(
-                    f"{name}: torch shape {tuple(target.shape)}, "
-                    f"Flax shape {array.shape}"
-                )
-            target.copy_(torch.from_numpy(np.array(array)))
+            targets[name].copy_(torch.from_numpy(np.array(array)))
     return module

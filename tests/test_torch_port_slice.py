@@ -159,6 +159,13 @@ def test_no_silent_cpu():
     for build in (tp.VNSmall, tp.DGCNN, tp.PointNet, lambda: tp.VNLinear(3, 4)):
         with pytest.raises((RuntimeError, AssertionError)):
             build()
+    with pytest.raises((RuntimeError, AssertionError)):
+        tp.ConvNetwork(3, 8, 5, input_size=96)
+    with pytest.raises((RuntimeError, AssertionError)):
+        tp.OptimizedGroupEquivariantImageCanonicalization(
+            torch.nn.Identity(), in_shape=(96, 96, 3))
+    with pytest.raises((RuntimeError, AssertionError)):
+        tp.rot90_flip_orbit(torch.zeros(1, 4, 4, 3, device="cuda"))
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "equiadapt_tpu")
@@ -183,7 +190,9 @@ def test_port_imports_nothing_of_jax():
                    "common/lie.py", "ops/kernels/knn.py",
                    "pointcloud/vector_neurons.py", "pointcloud/networks.py",
                    "pointcloud/canonicalization.py", "models/pointnet.py",
-                   "pipelines/pointcloud.py"):
+                   "pipelines/pointcloud.py", "ops/kernels/orbit.py",
+                   "images/networks/conv.py", "pipelines/classification.py",
+                   "utils/config.py", "utils/registry.py"):
         assert f"equiadapt_tpu_torch/{module}" in covered, module
     bad = [
         (str(f.relative_to(REPO)), name)

@@ -116,6 +116,22 @@ def test_harmonic_basis_and_kernel_assembly_match_flax():
     np.testing.assert_allclose(ours.permute(0, 2, 3, 1).numpy(), ref, rtol=0, atol=1e-6)
 
 
+def test_network_builds_at_the_yaml_widths():
+    """configs/canonicalization/steerable.yaml's network (16 fields per
+    order, kernel 9, 2 layers): the assembly keeps one signed ring basis
+    and coefficient index per kernel channel pair, 21 MB for the hidden
+    layer (a dense coefficient-to-kernel matrix of that layer would take
+    41 GB)."""
+    net = tp.SteerableNetwork(3, 16, 9, num_layers=2, device="cpu").eval()
+    constants = sum(b.numel() * b.element_size() for b in net.buffers())
+    assert constants < 2**25
+    with torch.no_grad():
+        out = net(torch.randn(2, 32, 32, 3))
+        kernel = net.SteerableConv_1.kernel()
+    assert out.shape == (2, 2, 2) and bool(torch.isfinite(out).all())
+    assert kernel.shape == (80, 80, 9, 9)
+
+
 def _net_variables():
     jnet = JNet(in_channels=3, out_channels=2, kernel_size=3, num_layers=1)
     return _redraw(jnet.init(jax.random.key(4), jnp.zeros((1, 8, 8, 3))), seed=5)
