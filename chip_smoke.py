@@ -12,6 +12,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    - K1 (steered rotate-select) and K2 (fused rotate-select-roll) with
      `torch.equal` (fp32 and bf16; C4, C8, D8; C in {3, 16}; random
      indices, shifts and reflections; and the full main-path shapes);
+   - K3 (the channels-last select) bit for bit as integers against its
+     plain version and against K1 on the same data in NCHW memory: N in
+     {1, 31, 32, 33, 224}, C in {1, 3, 4, 16}, 1-4 sources, every k, fp32
+     and bf16, a NaN payload and a -0.0 in every source;
    - K5 (centered quarter turn) with `torch.equal`, K6 (three-shear
      residual) and K7 (exact bilinear warp) within 2e-6 * max|x| (fp32)
      and one bf16 ulp (bf16), on ragged small cases and the main-path
@@ -20,13 +24,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
 4. discrete main path at full width: batch 256, 224 px, C8 GCNN energy
    (3 -> 8 channels, 3x3, 2 layers), ResNet-50 (10 classes) and the
    invert of a (256, 224, 224, 16) regular-rep map, in the two presets of
-   bench.py: exact / fp32 (crop 0.9, resize 64, unpooled GCNN) and serving
-   / bf16 (fast warp, fused-pool GCNN, crop 1.0, resize 56, bf16 output).
-   Launch counts are zeroed just before each preset and read just after;
-   every kernel of the path must have launched. Outputs must be finite; the
-   first samples must agree with the port's CPU run (plain kernels); and
-   canonicalizing torch.rot90(x) must select the element shifted by two for
-   at least 99% of the batch, with canonical images within 1e-4;
+   bench.py, each on the loader's NHWC-contiguous batch put in the memory
+   its ResNet-50 runs fastest on (`to_network_layout`, as the pipeline
+   does): exact / fp32 (crop 0.9, resize 64, unpooled GCNN; NCHW memory,
+   so the select is K1) and serving / bf16 (fast warp, fused-pool GCNN,
+   crop 1.0, resize 56, bf16 output; NHWC memory: K3, then a channels-last
+   ResNet-50); serving also on the same values in NCHW memory (K1), to
+   compare the layouts. Launch counts
+   are zeroed just before each preset and read just after; every kernel of
+   the path must have launched. Outputs must be finite; the first samples
+   must agree with the port's CPU run (plain kernels); and canonicalizing
+   torch.rot90(x) must select the element shifted by two for at least 99%
+   of the batch (serving: of the samples with a clear top-2 margin), with
+   canonical images within 1e-4 (serving: equal at quarter turns). ResNet-50
+   in bf16 is timed with its fp32 parameters and on a bf16 copy, in each
+   layout;
 5. continuous main path at full width: batch 256, 224 px,
    `SteerableNetwork(3, 4 fields per order, 5x5, 1 layer)`, crop 0.9,
    resize 64, rotation group, ResNet-50 and the scalar invert of a
@@ -60,8 +72,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 9. group inference at full width: configs/default.yaml's canonicalizer
    (C4 GCNN, 3 -> 16 channels, 3x3, 2 layers, crop 0.9, resize 64, exact
    warp) built by the port's registry, ResNet-50 (10 classes), 224 px;
-   `group_inference` on 64 images sweeps their C4 orbit (256 images).
-   K4 must launch once and K1 with one source (K1a) at least once. The
+   `group_inference` on 64 images (the loader's NHWC batch) sweeps their
+   C4 orbit (256 images), which the pipeline hands on in NCHW memory for
+   the fp32 ResNet-50. K4 must launch once and K1 with one source (K1a) at
+   least once. The
    metrics must be finite; each orbit element's canonical image must match
    element 0's within 1e-4 and its class be equal for 99% of the batch;
    acc_element_g must agree with the port's CPU run on the first 8 images;
@@ -71,13 +85,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
    configs/canonicalization/opt_group_equivariant.yaml (ConvNetwork 5x5,
    32 channels, 2 layers, 128-vector; D8; crop 0.9, resize 96; exact warp)
    built by the port's registry, and its D4 variant, on 128 images of
-   96 px before ResNet-50. D8 orbits by static warps (no K4) and selects
-   with two-source K1; D4 orbits by one K4 launch (reflections) and
-   selects with K1a. Outputs must be finite; the first 8 images must
+   96 px (the loader's NHWC batch, handed over in NCHW memory for the
+   fp32 ResNet-50 by the pipeline's `canonicalize`). D8 orbits by static
+   warps (no K4) and selects with two-source K1; D4 orbits by one K4
+   launch (reflections) and selects with K1a. The canonicalizer is also
+   timed on the NHWC batch itself (K3). Outputs must be finite; the first 8 images must
    agree with the port's CPU run; at D4, canonicalizing torch.rot90(x)
    must select the next rotation of the same coset for 99% of the batch
    (at a crop of 0.875, whose margins are equal);
-11. times (CUDA events, after warm-up), per preset: canonicalize +
+11. the discrete trainer of bench.py:566-657 at full width (C8 GCNN,
+   crop 0.9, resize 64, ResNet-50, batch 128 at 224 px, AdamW 1e-3,
+   prior weight 100), bf16-fast and fp32-exact: the loss over 20 steps on
+   one fixed batch (finite, falling), ms per step over 8 steps (CUDA
+   events), img/s, peak memory and device time by kernel name of one step;
+   a validation step on the loader's NHWC batch, which launches K3 (bf16)
+   or, put in NCHW memory by the pipeline for the fp32 ResNet-50, K1;
+12. one fp32-exact train step (SGD, dropout 0, batch 8) on the card
+   against the same step on the CPU: loss, gradient norms, updates and
+   BatchNorm statistics;
+13. `invert_regular_fast_diff` forward and backward at (256, 224, 224, 16),
+   C4, D4, C8, D8, fp32 and bf16: two K2 launches each, the cotangents
+   against the CPU run of 8 samples, and the time;
+14. the select kernels' gradients (K3, K1, K2 through `rotate_select` and
+   `rotate_roll_select`) against the CPU's plain versions;
+15. times (CUDA events, after warm-up), per preset: canonicalize +
    invert images/s, the canonicalizer's overhead over the bare ResNet-50,
    device time by kernel name for one canonicalize + invert and one
    ResNet-50 call (torch.profiler); for the point-cloud path,
@@ -87,8 +118,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    optimized canonicalizer, canonicalize ms, canonicalize + ResNet-50 ms,
    the overhead over the bare ResNet-50 at 96 px and the canonicalizer's
    parts; and per kernel its time, its bound, its plain version's time,
-   one PyTorch call's time where one computes the same function, and its
-   launches.
+   one PyTorch call's time where one computes the same function, its
+   launches and, for K1 / K3 / K2, the time of its backward.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
@@ -115,7 +146,21 @@ SOURCE = "equiadapt_tpu_torch/csrc/select_warp.cu"
 TPU_KERNEL = {
     "select_planes": "equiadapt_tpu/ops/pallas/select_warp.py:233",
     "select_planes_rolled": "equiadapt_tpu/ops/pallas/select_warp.py:630",
+    "select_planes_nhwc": "equiadapt_tpu/ops/pallas/select_warp.py:503",
 }
+# the discrete presets: (canonicalizer, input layout) and the kernels each
+# must launch; "serving" takes the loader's NHWC-contiguous batch (K3),
+# "serving_nchw" the same values as a view of NCHW memory (K1)
+PRESET_KERNELS = {
+    "exact": ("select_planes/float32", "select_planes_rolled/float32"),
+    "serving": ("select_planes_nhwc/bfloat16", "select_planes_rolled/bfloat16"),
+    "serving_nchw": ("select_planes/bfloat16", "select_planes_rolled/bfloat16"),
+}
+# the trainer of bench.py:566-657: batch 128 at 224 px, AdamW(1e-3), prior
+# weight 100; steps on one fixed batch, then timed steps
+TRAIN_B, TRAIN_FALL_STEPS, TRAIN_TIMED_STEPS = 128, 20, 8
+# the train step held against the CPU: fp32-exact, SGD, dropout 0
+TRAIN_CPU_B = 8
 # continuous kernels: (source, TPU kernel's pallas_call)
 CONT_KERNEL = {
     "rot90_centered_select": ("equiadapt_tpu_torch/csrc/shear_rotate.cu",
@@ -306,33 +351,42 @@ def check_continuous_kernels(sr, bw, gen):
     log(f"continuous kernel checks: {n_checked} small cases within their bars")
 
 
-def main_shape_inputs(sw, gen, C, dtype, rolled):
+def main_shape_inputs(sw, gen, C, dtype, rolled, nhwc=False):
     """Sources and indices at a main-path shape: the batch and its 45-degree
-    residual warp (C8, two sources)."""
+    residual warp (C8, two sources), NCHW or NHWC."""
     residues, src_of, k_of = sw._c_n_decomposition(NUM_ROT, 1.0 if rolled else -1.0)
     idx = torch.randint(0, NUM_ROT, (B,), generator=gen).to(DEVICE)
     src = torch.tensor(src_of, device=DEVICE)[idx].int()
     k = torch.tensor(k_of, device=DEVICE)[idx].int()
-    srcs = [torch.randn(B, C, IMAGE, IMAGE, device=DEVICE).to(dtype)
-            for _ in residues]
+    shape = (B, IMAGE, IMAGE, C) if nhwc else (B, C, IMAGE, IMAGE)
+    srcs = [torch.randn(*shape, device=DEVICE).to(dtype) for _ in residues]
     shift = idx.int() if rolled else None
     return srcs, src, k, shift
 
 
-def gather_ms(sw, srcs, src, k, shift, got):
+def plain_call(sw, name, srcs, src, k, shift):
+    if name == "select_planes_rolled":
+        return sw.select_planes_plain(srcs, src, k, shift, None, NUM_ROT, NUM_ROT)
+    if name == "select_planes_nhwc":
+        return sw.select_planes_nhwc_plain(srcs, src, k)
+    return sw.select_planes_plain(srcs, src, k)
+
+
+def kernel_call(sw, name, srcs, src, k, shift):
+    if name == "select_planes_rolled":
+        return sw.select_planes_rolled(srcs, src, k, shift, NUM_ROT, NUM_ROT)
+    return getattr(sw, name)(srcs, src, k)
+
+
+def gather_ms(sw, name, srcs, src, k, shift, got):
     """Yardstick: one torch.gather over the stacked sources with the flat
     index of the same permutation, built outside the timed window (by the
     plain version run on source-index values); checked equal to the
     kernel's output."""
-    Bs, C, N, _ = srcs[0].shape
-    n = Bs * C * N * N
-    iota = [torch.arange(s * n, (s + 1) * n, device=DEVICE).view(Bs, C, N, N)
+    n = srcs[0].numel()
+    iota = [torch.arange(s * n, (s + 1) * n, device=DEVICE).view(srcs[0].shape)
             for s in range(len(srcs))]
-    if shift is None:
-        idx = sw.select_planes_plain(iota, src, k)
-    else:
-        idx = sw.select_planes_plain(iota, src, k, shift, None, NUM_ROT, NUM_ROT)
-    idx = idx.reshape(-1)
+    idx = plain_call(sw, name, iota, src, k, shift).reshape(-1)
     del iota
     flat = torch.stack(srcs).reshape(-1)
     run = lambda: torch.gather(flat, 0, idx)
@@ -342,31 +396,42 @@ def gather_ms(sw, srcs, src, k, shift, got):
     return ms
 
 
+def backward_ms(sw, name, srcs, src, k, shift):
+    """Time of the kernel's backward (one launch on the cotangent, then a
+    mask per source), through autograd, at the main-path shape."""
+    leaves = [s.detach().requires_grad_(True) for s in srcs]
+    with torch.enable_grad():
+        out = kernel_call(sw, name, leaves, src, k, shift)
+        g = torch.randn_like(out)
+        ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+                     reps=10)
+    del out, g, leaves
+    return ms
+
+
 def kernel_entry(sw, name, dtype, gen, bw, launches, one_source=False):
     """Check and time one kernel at its main-path shape."""
     rolled = name == "select_planes_rolled"
+    nhwc = name == "select_planes_nhwc"
     C = FEATURE_CH if rolled else 3
-    srcs, src, k, shift = main_shape_inputs(sw, gen, C, dtype, rolled)
+    srcs, src, k, shift = main_shape_inputs(sw, gen, C, dtype, rolled, nhwc)
     if one_source:  # K1a: the single-source launch of K1
         srcs, src = srcs[:1], torch.zeros_like(src)
-    if rolled:
-        run = lambda: sw.select_planes_rolled(srcs, src, k, shift, NUM_ROT, NUM_ROT)
-        plain = lambda: sw.select_planes_plain(srcs, src, k, shift, None,
-                                               NUM_ROT, NUM_ROT)
-    else:
-        run = lambda: sw.select_planes(srcs, src, k)
-        plain = lambda: sw.select_planes_plain(srcs, src, k)
+    run = lambda: kernel_call(sw, name, srcs, src, k, shift)
+    plain = lambda: plain_call(sw, name, srcs, src, k, shift)
     got, ref = run(), plain()
     sync()
-    assert torch.equal(got, ref), (name, dtype, "main-path shape")
+    assert torch.equal(orbit_bits(got), orbit_bits(ref)), (name, dtype, "main-path shape")
     err = (got.float() - ref.float()).abs().max().item()
     ms = cuda_ms(run, reps=20)
     plain_ms = cuda_ms(plain, reps=3, warmup=1)
-    library_ms = gather_ms(sw, srcs, src, k, shift, got)
+    library_ms = gather_ms(sw, name, srcs, src, k, shift, got)
+    bwd_ms = backward_ms(sw, name, srcs, src, k, shift)
     nbytes = 2 * got.numel() * got.element_size() + sum(
         t.numel() * t.element_size() for t in (src, k, shift) if t is not None)
     bound_ms = nbytes / bw * 1e3
     tag = str(dtype).removeprefix("torch.")
+    shape = list(got.shape)
     del srcs, got, ref
     replaces = TPU_KERNEL[name]
     if one_source:
@@ -379,7 +444,7 @@ def kernel_entry(sw, name, dtype, gen, bw, launches, one_source=False):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
         "library": "torch.gather, precomputed int64 index",
-        "shape": [B, C, IMAGE, IMAGE], "bytes": nbytes,
+        "backward_ms": bwd_ms, "shape": shape, "bytes": nbytes,
     }
 
 
@@ -1059,7 +1124,7 @@ def check_group_inference(tp, pipe, batch, metrics, m=8):
       metrics are finite."""
     x, labels = batch["image"], batch["label"]
     orbit = tp.materialize_orbit(x, 4, sign=1.0)
-    x_c, info = pipe.canonicalize(orbit)
+    x_c, info = pipe.canonicalize(orbit)  # in the network's layout, as the sweep
     logits = pipe.prediction_network(x_c)
     xc = x_c.reshape(4, GI_B, *x_c.shape[1:])
     pred = logits.argmax(-1).reshape(4, GI_B)
@@ -1108,7 +1173,7 @@ def time_group_inference(tp, pipe, batch):
     sweep = lambda: tp.group_inference(pipe, batch, num_rotations=4,
                                        group_type="rotation")
     orbit = tp.materialize_orbit(x, 4, sign=1.0)
-    x_c = pipe.canonicalize(orbit)[0]
+    x_c = pipe.canonicalize(orbit)[0]  # in the network's layout, as the sweep
     t_gi = cuda_ms(sweep, reps=5)
     times = {"group_inference_ms": t_gi,
              "orbit_img_per_s": orbit.shape[0] / t_gi * 1e3,
@@ -1185,22 +1250,27 @@ def check_optimized_shift(canon, x):
     return {"crop": OPT_SYMMETRIC_CROP, "share_shifted": share}
 
 
-def time_optimized(path, sw, pipe, x):
-    """End-to-end times of one optimized preset, the canonicalizer's parts
-    and its device profile."""
+def time_optimized(path, sw, tp, pipe, x_loader):
+    """End-to-end times of one optimized preset on the batch the pipeline
+    hands over (NCHW memory for the fp32 ResNet-50), the canonicalizer's
+    time on the loader's NHWC batch too (K3), its parts and its device
+    profile."""
     canon, resnet = pipe.canonicalizer, pipe.prediction_network
+    x = tp.to_network_layout(x_loader, resnet)
     t_bare = cuda_ms(lambda: resnet(x), reps=5)
     t_wrapped = cuda_ms(lambda: resnet(canon.canonicalize(x)[0]), reps=5)
     t_canon = cuda_ms(lambda: canon.canonicalize(x), reps=5)
+    t_canon_nhwc = cuda_ms(lambda: canon.canonicalize(x_loader), reps=5)
     x_r = canon.transformations_before_canonicalization_network_forward(x)
     orbit = canon.group_augment(x_r)
     n = canon.num_rotations
     idx = canon.canonicalize(x)[1].onehot.reshape(x.shape[0], -1, n).sum(1).argmax(-1)
     times = {
         "resnet50_ms": t_bare, "canon_resnet50_ms": t_wrapped,
-        "canonicalize_ms": t_canon,
+        "canonicalize_ms": t_canon, "canonicalize_nhwc_ms": t_canon_nhwc,
         "canonicalize_img_per_s": x.shape[0] / t_canon * 1e3,
         "overhead_pct": (t_wrapped - t_bare) / t_bare * 100.0,
+        "to_network_layout_ms": cuda_ms(lambda: tp.to_network_layout(x_loader, resnet)),
         "parts_ms": {
             "crop_resize": cuda_ms(
                 lambda: canon.transformations_before_canonicalization_network_forward(x)),
@@ -1268,6 +1338,412 @@ def time_preset(preset, canon, resnet, x, yy, **invert_kw):
     return times
 
 
+def nchw_view(x):
+    """The same values as a (B, H, W, C) view of NCHW memory."""
+    return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+
+def with_payloads(x):
+    """x with a NaN carrying a payload first and a -0.0 last, so that a
+    comparison of the words sees whether they were moved bit for bit."""
+    words = orbit_bits(x).view(-1)
+    words[0] = 0x7FC00123 if x.element_size() == 4 else 0x7FC3
+    x.view(-1)[-1] = -0.0
+    return x
+
+
+def check_k3_kernel(sw, gen):
+    """K3 against its plain version and against K1 on the same data in NCHW
+    memory, as integers: N in {1, 31, 32, 33, 224}, C in {1, 3, 4, 16},
+    1 to 4 sources, every k, fp32 and bf16, a NaN payload and a -0.0 in
+    every source. Launches here are not counted as the main paths'."""
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in (1, 31, 32, 33, 224):
+            b = 4 if N == 224 else 8
+            for C in (1, 3, 4, 16):
+                for S in (1, 2, 3, 4):
+                    srcs = [with_payloads(torch.randn(b, N, N, C, generator=gen)
+                                          .to(dtype)).to(DEVICE) for _ in range(S)]
+                    src = torch.randint(0, S, (b,), generator=gen).int().to(DEVICE)
+                    k = (torch.arange(b) % 4 + 4 * torch.randint(-2, 2, (b,),
+                         generator=gen)).int().to(DEVICE)  # every k, some negative
+                    got = sw.select_planes_nhwc(srcs, src, k)
+                    ref = sw.select_planes_nhwc_plain(srcs, src, k)
+                    k1 = sw.select_planes([s.permute(0, 3, 1, 2).contiguous()
+                                           for s in srcs], src, k)
+                    sync()
+                    assert got.is_contiguous()
+                    assert torch.equal(orbit_bits(got), orbit_bits(ref)), (
+                        "K3", dtype, N, C, S)
+                    assert torch.equal(orbit_bits(got), orbit_bits(
+                        k1.permute(0, 2, 3, 1).contiguous())), ("K3 vs K1", dtype, N, C, S)
+                    cases += 1
+    log(f"K3 checks: {cases} cases bit-equal to the plain version and to K1")
+    return {"cases": cases}
+
+
+def check_serving_against_cpu(canon, resnet, x, y, x_c, info, logits, y_inv, m=8):
+    """The serving preset's first m samples against the port's CPU run
+    (plain kernels, the CPU's bf16 convolutions). Bars: group activations
+    within 5e-2 of the largest (a bf16 energy network, 8 bits of mantissa,
+    summed in another order); the same element where the CPU's top-2
+    margin exceeds 5e-2 of the largest activation; on the samples with the
+    same element the canonical images and the inverted maps equal at
+    quarter-turn elements and within 2 bf16 ulps of the largest value at
+    45-degree ones (two bf16 products summed in another order); logits
+    within 5e-2 of the largest."""
+    canon_cpu = copy.deepcopy(canon).to("cpu")
+    resnet_cpu = copy.deepcopy(resnet).to("cpu")
+    xc_r, info_r, logits_r, yi_r = run_path(canon_cpu, resnet_cpu,
+                                            x[:m].cpu(), y[:m].cpu())
+    acts = info_r.group_activations
+    scale = acts.abs().max().item()
+    top2 = acts.sort(dim=-1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 5e-2 * scale
+    sel = info.onehot[:m].argmax(-1).cpu()
+    same = sel == info_r.onehot.argmax(-1)
+    assert bool(same[clear].all()), (sel, acts)
+    quarter = same & (sel % 2 == 0)
+    odd = same & (sel % 2 == 1)
+
+    def worst(a, b, mask):
+        return (a[mask].float() - b[mask].float()).abs().max().item() if mask.any() else 0.0
+
+    xg, yg = x_c[:m].cpu(), y_inv[:m].cpu()
+    out = {"samples": m, "same_element": int(same.sum()), "clear": int(clear.sum()),
+           "max_abs_act": (info.group_activations[:m].cpu() - acts).abs().max().item(),
+           "quarter_equal": bool(torch.equal(xg[quarter], xc_r[quarter])
+                                 and torch.equal(yg[quarter], yi_r[quarter])),
+           "max_abs_image_45": worst(xg, xc_r, odd),
+           "max_abs_invert_45": worst(yg, yi_r, odd),
+           "max_rel_logit": ((logits[:m].cpu().float() - logits_r.float()).abs().max()
+                             / logits_r.float().abs().max()).item()}
+    bar_x = 2 * 2.0**-8 * x.float().abs().max().item()
+    bar_y = 2 * 2.0**-8 * y.float().abs().max().item()
+    assert (out["max_abs_act"] < 5e-2 * scale and out["quarter_equal"]
+            and out["max_abs_image_45"] <= bar_x and out["max_abs_invert_45"] <= bar_y
+            and out["max_rel_logit"] < 5e-2), out
+    return out
+
+
+def check_serving_equivariance(canon, x, x_c, info):
+    """canonicalize(rot90(x)) selects the element shifted by two for 99% of
+    the samples whose top-2 margin exceeds 1e-2 of the largest activation
+    (the bf16 energy network is rot90-equivariant up to its rounding); where
+    the element is a quarter turn the canonical images are equal (the same
+    permutation of the same bf16 values). The 45-degree ones differ by the
+    two-pass residual and are reported."""
+    x_rot = torch.rot90(x, 1, dims=(1, 2))
+    x_rot = x_rot.contiguous() if x.is_contiguous() else nchw_view(x_rot)
+    x_c_rot, info_rot = canon.canonicalize(x_rot)
+    acts = info.group_activations
+    top2 = acts.sort(dim=-1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-2 * acts.abs().max()
+    sel = info.onehot.argmax(-1)
+    ok = info_rot.onehot.argmax(-1) == (sel + 2) % NUM_ROT
+    share = ok[clear].float().mean().item()
+    quarter = ok & (sel % 2 == 0)
+    err_q = (x_c_rot[quarter].float() - x_c[quarter].float()).abs().max().item()
+    odd = ok & (sel % 2 == 1)
+    err_o = ((x_c_rot[odd].float() - x_c[odd].float()).abs().max().item()
+             if odd.any() else 0.0)
+    assert share >= 0.99 and err_q == 0.0, (share, err_q)
+    return {"share_shifted_clear": share, "clear": int(clear.sum()),
+            "max_abs_image_quarter": err_q, "max_abs_image_45": err_o}
+
+
+def time_param_dtype(resnet_bf16, xs):
+    """ResNet-50 in bf16 with its fp32 parameters (cast per call, as Flax
+    keeps them) against a bf16 copy of it (every parameter and BatchNorm
+    statistic bf16), per input layout."""
+    r16 = copy.deepcopy(resnet_bf16).to(torch.bfloat16)
+    out = {}
+    for layout, x in xs.items():
+        out[layout] = {"fp32_params_ms": cuda_ms(lambda: resnet_bf16(x), reps=5),
+                       "bf16_params_ms": cuda_ms(lambda: r16(x), reps=5)}
+    log(f"resnet50 bf16 by parameter dtype: {json.dumps(out)}")
+    del r16
+    return out
+
+
+def build_trainer(tp, mode, dropout_rate=0.5):
+    """bench.py's trainer: C8 EquivariantNetwork(3 -> 8, 3x3, 2 layers),
+    crop 0.9, resize 64, ResNet-50 (10 classes); "bf16_fast": fast warp,
+    bf16 energy network and ResNet-50 over fp32 parameters; "fp32_exact":
+    static-tap warps, fp32. Weights from seeds 7 and 8."""
+    fast = mode == "bf16_fast"
+    torch.manual_seed(7)
+    net = tp.EquivariantNetwork(3, 8, 3, group_type="rotation", num_rotations=NUM_ROT,
+                                num_layers=2, dropout_rate=dropout_rate, device=DEVICE)
+    canon = tp.GroupEquivariantImageCanonicalization(
+        net, in_shape=(IMAGE, IMAGE, 3), input_crop_ratio=0.9, resize_shape=64,
+        num_rotations=NUM_ROT, group_type="rotation",
+        warp_mode="fast" if fast else "exact",
+        compute_dtype=torch.bfloat16 if fast else None)
+    torch.manual_seed(8)
+    resnet = tp.ResNet50(num_classes=10, device=DEVICE,
+                         dtype=torch.bfloat16 if fast else torch.float32)
+    return tp.ImageClassifierPipeline(canon, resnet)
+
+
+def train_phase(tp, sw, mode, gen):
+    """The trainer at full width: the loss over TRAIN_FALL_STEPS steps on one
+    fixed batch (finite, falling), then ms per step by CUDA events over
+    TRAIN_TIMED_STEPS steps after two warm-up steps, img/s and the peak
+    memory of those steps; then a validation `make_eval_step` on the
+    loader's NHWC-contiguous batch, whose select launches are counted: K3
+    in bf16-fast, K1 in fp32-exact (the pipeline hands the fp32 ResNet-50
+    NCHW memory)."""
+    loss_kw = {"prior_weight": 100.0}
+    pipe = build_trainer(tp, mode)
+    opt = torch.optim.AdamW(pipe.parameters(), lr=1e-3, weight_decay=1e-4)
+    state = tp.create_train_state(pipe, ([opt], []))
+    step = tp.make_train_step(loss_kw, watch_gradients=True)
+    x = smooth_images(gen, TRAIN_B).contiguous().to(DEVICE)
+    labels = torch.randint(0, 10, (TRAIN_B,), generator=gen).to(DEVICE)
+    batch = {"image": x, "label": labels}
+    dgen = torch.Generator(device=DEVICE).manual_seed(9)
+    losses = []
+    for _ in range(TRAIN_FALL_STEPS):
+        state, m = step(state, batch, dgen)
+        losses.append(m["loss/total"].item())
+    assert all(math.isfinite(v) for v in losses), losses
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    assert last < first, losses
+    for _ in range(2):
+        step(state, batch, dgen)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_TIMED_STEPS):
+        state, m = step(state, batch, dgen)
+    end.record()
+    sync()
+    ms = start.elapsed_time(end) / TRAIN_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    assert math.isfinite(m["loss/total"].item()), m
+    out = {"step_ms": ms, "img_per_s": TRAIN_B / ms * 1e3, "peak_mem_gib": peak / 2**30,
+           "losses": losses, "grad_norms": {k: v.item() for k, v in m.items()
+                                            if k.startswith("grad/")}}
+    out["profile"] = device_profile(lambda: step(state, batch, dgen))
+    log(f"train {mode} profile: {json.dumps(out['profile'][:12] + out['profile'][-1:])}")
+    want = ("select_planes_nhwc/bfloat16" if mode == "bf16_fast"
+            else "select_planes/float32")
+    sw.reset_launches()
+    metrics = tp.make_eval_step(loss_kw)(state.model, {"image": x, "label": labels})
+    sync()
+    out["validation_launches"] = dict(sw.launches)
+    assert sw.launches.get(want, 0) >= 1, (mode, sw.launches)
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values()), metrics
+    out["validation"] = {k: v.item() for k, v in metrics.items()}
+    log(f"train {mode}: {json.dumps({k: v for k, v in out.items() if k not in ('losses', 'profile')})}; "
+        f"losses {[round(v, 4) for v in losses]}")
+    del state, opt, pipe, x, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_vs_cpu(tp, gen):
+    """One fp32-exact train step (SGD, dropout 0, batch TRAIN_CPU_B at 224 px)
+    from the same weights on the card and on the CPU. Bars: the loss within
+    1e-4 relative; the gradient norm of each top-level module within 1e-3
+    relative; the BatchNorm running statistics within 1e-4 of each one's
+    largest value; the updates, by their norms: the canonicalizer's and
+    ResNet-50's head's within 1e-3, the whole ResNet-50's within 5e-2. A
+    ReLU input within rounding of 0 takes the other branch on one device,
+    and the gradients of the layers below it differ at a few positions;
+    50 layers of train-mode BatchNorm at batch 8 spread that: the CPU
+    alone, on the same step in channels-last and in NCHW memory, differs
+    by 2.0e-2 over ResNet-50's gradients and 3.9e-5 at its head."""
+    loss_kw = {"prior_weight": 100.0}
+    pipe = build_trainer(tp, "fp32_exact", dropout_rate=0.0)
+    pipe_cpu = copy.deepcopy(pipe).to("cpu")
+    x = smooth_images(gen, TRAIN_CPU_B).contiguous()
+    labels = torch.randint(0, 10, (TRAIN_CPU_B,), generator=gen)
+    before = {k: v.detach().cpu().clone() for k, v in pipe.state_dict().items()}
+    res = {}
+    for dev, model in ((DEVICE, pipe), ("cpu", pipe_cpu)):
+        opt = torch.optim.SGD(model.parameters(), lr=0.01)
+        state = tp.create_train_state(model, ([opt], []))
+        batch = {"image": x.to(dev), "label": labels.to(dev)}
+        _, m = tp.make_train_step(loss_kw, watch_gradients=True)(state, batch)
+        res[dev] = ({k: v.item() for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (mg, sg), (mc, sc) = res[DEVICE], res["cpu"]
+    out = {"loss_rel": abs(mg["loss/total"] - mc["loss/total"]) / abs(mc["loss/total"])}
+    out["grad_norm_rel"] = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
+                            for k in mc if k.startswith("grad/")}
+    upd, stats = {}, 0.0
+    for top in ("canonicalizer", "prediction_network", "prediction_network.Dense_0"):
+        d2 = r2 = 0.0
+        for k in sc:
+            if not k.startswith(top) or k.endswith("num_batches_tracked"):
+                continue
+            if k.endswith(("running_mean", "running_var")):
+                stats = max(stats, ((sg[k] - sc[k]).abs().max()
+                                    / sc[k].abs().max().clamp(min=1e-30)).item())
+                continue
+            du_g, du_c = sg[k] - before[k], sc[k] - before[k]
+            d2 += ((du_g - du_c) ** 2).sum().item()
+            r2 += (du_c ** 2).sum().item()
+        upd[top] = math.sqrt(d2 / max(r2, 1e-30))
+    out["update_rel"], out["bn_stats_rel"] = upd, stats
+    log(f"train step vs CPU: {json.dumps(out)}")
+    assert out["loss_rel"] < 1e-4, out
+    assert all(v < 1e-3 for v in out["grad_norm_rel"].values()), out
+    assert upd["canonicalizer"] < 1e-3 and upd["prediction_network.Dense_0"] < 1e-3, out
+    assert upd["prediction_network"] < 5e-2 and stats < 1e-4, out
+    del pipe, pipe_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def invert_diff_phase(tp, sw, gen):
+    """`invert_regular_fast_diff` forward and backward on a (B, 224, 224, 16)
+    map, C4, D4, C8 and D8, fp32 and bf16, with a random cotangent. K2 must
+    launch twice (forward, and the map's cotangent). Against the CPU run of
+    the first 8 samples: the map's cotangent `torch.equal` at C4 / D4 (a
+    permutation) and, at C8 / D8, within 1e-4 of its largest value (fp32)
+    or two bf16 ulps: the 45-degree source is a two-pass product whose tap
+    weights are fractions of sample positions up to 224, known to one fp32
+    ulp there (1.5e-5; the card divides by a host scalar as a product with
+    its reciprocal), two taps in each of two passes. The fp32 bar was set
+    from the readings on an H100: 8.9e-5 of a largest value of 5.06 (1.8e-5
+    of it) failed the first bar, 2e-6 of it. The run also reads a wrong
+    element (every sample one step on) against the CPU and asserts that
+    the bar lies below that reading. The one-hot's and the
+    reflection's cotangents (fp32 sums over the map) within 1e-4 of their
+    largest value at C4 / D4 and 1e-3 at C8 / D8 (central differences of
+    those 45-degree values) in fp32, 1e-2 in bf16."""
+    out = {}
+    for n, reflect in ((4, False), (4, True), (8, False), (8, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).removeprefix("torch.")
+            fm = torch.randn(B, IMAGE, IMAGE, FEATURE_CH, generator=gen).to(DEVICE, dtype)
+            idx = torch.randint(0, n, (B,), generator=gen)
+            oh = F.one_hot(idx, n).to(DEVICE, dtype)
+            refl = (torch.randint(0, 2, (B,), generator=gen).to(DEVICE, dtype)
+                    if reflect else None)
+            g = torch.randn(B, IMAGE, IMAGE, FEATURE_CH, generator=gen).to(DEVICE, dtype)
+
+            def run(fm=fm, oh=oh, refl=refl, g=g, m=None):
+                sl = slice(None) if m is None else slice(0, m)
+                leaves = [t[sl].detach().requires_grad_(True)
+                          for t in (fm, oh, refl) if t is not None]
+                with torch.enable_grad():
+                    y = tp.invert_regular_fast_diff(
+                        leaves[0], leaves[1], leaves[2] if reflect else None, n)
+                    grads = torch.autograd.grad(y, leaves, g[sl])
+                return y.detach(), grads
+
+            sw.reset_launches()
+            y, grads = run()
+            sync()
+            k2_launches = sw.launches.get(f"select_planes_rolled/{tag}", 0)
+            assert sw.launches == {f"select_planes_rolled/{tag}": 2}, sw.launches
+            ms = cuda_ms(run, reps=3, warmup=1)
+            cpu = [t[:8].cpu() if t is not None else None for t in (fm, oh, refl, g)]
+            y_c, grads_c = run(*cpu)
+            d_x = (grads[0][:8].cpu().float() - grads_c[0].float()).abs().max().item()
+            d_wrong = None
+            if n == 4:
+                assert torch.equal(grads[0][:8].cpu(), grads_c[0]), (n, reflect, tag)
+                assert torch.equal(y[:8].cpu(), y_c), (n, reflect, tag)
+            else:
+                bar = ((1e-4 if dtype == torch.float32 else 2 * 2.0**-8)
+                       * grads_c[0].float().abs().max().item())
+                oh_wrong = F.one_hot((idx[:8] + 1) % n, n).to(dtype)
+                _, grads_w = run(cpu[0], oh_wrong, cpu[2], cpu[3])
+                d_wrong = (grads_w[0].float() - grads_c[0].float()).abs().max().item()
+                assert d_x <= bar < d_wrong, (n, reflect, tag, d_x, bar, d_wrong)
+            rel = []
+            for a, b_ in zip(grads[1:], grads_c[1:]):
+                scale = b_.float().abs().max().clamp(min=1e-30)
+                rel.append(((a[:8].cpu().float() - b_.float()).abs().max() / scale).item())
+            bar = 1e-2 if dtype == torch.bfloat16 else (1e-4 if n == 4 else 1e-3)
+            assert max(rel) <= bar, (n, reflect, tag, rel)
+            key = f"{'D' if reflect else 'C'}{n}/{tag}"
+            out[key] = {"fwd_bwd_ms": ms, "max_abs_map_grad": d_x,
+                        "max_abs_map_grad_wrong_element": d_wrong,
+                        "rel_onehot_grad": rel[0],
+                        "rel_reflection_grad": rel[1] if reflect else None,
+                        "launches": k2_launches}
+            log(f"invert_regular_fast_diff {key}: {json.dumps(out[key])}")
+            del fm, oh, refl, g, y, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def select_gradient_phase(sw, gen):
+    """The select kernels carry gradients: `torch.autograd.grad` through
+    `rotate_select` on the card (K3 for an NHWC batch, K1 for a view of
+    NCHW memory) and through `rotate_roll_select` (K2) against the CPU
+    (plain versions), C8, exact and fast, fp32 and bf16, 32 images at
+    224 px. Bars: `torch.equal` on the samples whose element is a quarter
+    turn (one source: the gradient is one permutation of the cotangent);
+    on the 45-degree samples, whose gradient also runs back through the
+    residual warp, in fp32 within 1e-5 of the largest value (exact: the
+    host's static taps, scattered in another order on the card) or 1e-4
+    (fast: the two-pass tap weights, known to an fp32 ulp of positions up
+    to 224, `invert_diff_phase`); in bf16 within 8 bf16 ulps of the largest
+    value, as the residual's backward scatters and sums its taps in bf16
+    (the sources' dtype), in another order on the card. The bf16 bar was
+    set from the readings on an H100: 0.25 against a largest value of 9.1
+    (7 ulps of it) failed the first bar, 4 ulps. The run also reads a
+    wrong element (every sample one step on: the quarter turn next to each
+    45-degree one) against the CPU and asserts that each bar lies below
+    that reading."""
+    b = 32
+    out = {}
+    for mode in ("exact", "fast"):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).removeprefix("torch.")
+            for route in ("nhwc", "nchw", "rolled"):
+                C = FEATURE_CH if route == "rolled" else 3
+                x = torch.randn(b, IMAGE, IMAGE, C, generator=gen).to(dtype)
+                g = torch.randn(b, IMAGE, IMAGE, C, generator=gen).to(dtype)
+                idx = torch.randint(0, NUM_ROT, (b,), generator=gen)
+
+                def grad_on(dev, x=x, g=g, idx=idx, route=route, mode=mode):
+                    xx = x.to(dev)
+                    xx = nchw_view(xx) if route == "nchw" else xx
+                    xx = xx.detach().requires_grad_(True)
+                    with torch.enable_grad():
+                        if route == "rolled":
+                            y = sw.rotate_roll_select(xx, idx.to(dev), idx.to(dev),
+                                                      NUM_ROT, 1.0, "zeros", mode=mode)
+                        else:
+                            y = sw.rotate_select(xx, idx.to(dev), NUM_ROT, -1.0,
+                                                 "border", mode)
+                        assert y.grad_fn is not None, route
+                        (gx,) = torch.autograd.grad(y, xx, g.to(dev))
+                    return gx.cpu()
+
+                sw.reset_launches()
+                got = grad_on(DEVICE)
+                sync()
+                assert sum(sw.launches.values()) == 2, (route, sw.launches)
+                ref = grad_on("cpu")
+                wrong = grad_on("cpu", idx=(idx + 1) % NUM_ROT)
+                quarter = idx % 2 == 0
+                assert torch.equal(got[quarter], ref[quarter]), (mode, tag, route)
+                err = (got[~quarter].float() - ref[~quarter].float()).abs().max().item()
+                err_wrong = (wrong[~quarter].float() - ref[~quarter].float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                if dtype == torch.bfloat16:
+                    bar = 8 * 2.0**-8 * scale
+                else:
+                    bar = (1e-5 if mode == "exact" else 1e-4) * scale
+                assert err <= bar < err_wrong, (mode, tag, route, err, bar, err_wrong)
+                out[f"{mode}/{tag}/{route}"] = {"max_abs_45": err, "bar": bar,
+                                                "max_abs_45_wrong_element": err_wrong}
+    log(f"select gradients vs CPU: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -1310,26 +1786,36 @@ def main() -> int:
     knn_checks = check_knn_kernel(kn, gen_knn)
     gen_orbit = torch.Generator().manual_seed(4)
     orbit_checks = check_orbit_kernel(orb, gen_orbit)
+    gen_k3 = torch.Generator().manual_seed(10)
+    k3_checks = check_k3_kernel(sw, gen_k3)
     src_log = SourceLog(sw)
 
     presets = build_presets(tp)
-    x = smooth_images(gen).to(DEVICE)
+    presets["serving_nchw"] = presets["serving"]
+    x0 = smooth_images(gen).contiguous().to(DEVICE)  # the loader's NHWC batch
     y = torch.randn(B, IMAGE, IMAGE, FEATURE_CH, generator=gen).to(DEVICE)
-    ys = {"exact": y, "serving": y.to(torch.bfloat16)}
+    # each preset's batch as the pipeline hands it to the canonicalizer
+    # (NCHW memory for the fp32 ResNet-50, NHWC for the bf16 one), and the
+    # serving preset once more in NCHW memory, to compare the layouts
+    xs_in = {"exact": tp.to_network_layout(x0, presets["exact"][1]),
+             "serving": tp.to_network_layout(x0, presets["serving"][1]),
+             "serving_nchw": nchw_view(x0)}
+    ys = {"exact": y, "serving": y.to(torch.bfloat16),
+          "serving_nchw": y.to(torch.bfloat16)}
     launches, checks, times = {}, {}, {}
     with torch.no_grad():
         for preset, (canon, resnet) in presets.items():
+            x = xs_in[preset]
             sw.reset_launches()
             src_log.start(preset)
             out = run_path(canon, resnet, x, ys[preset])
             sync()
             src_log.stop()
             counts = dict(sw.launches)
-            launches.update(counts)
+            launches.update({f"{preset}:{k}": v for k, v in counts.items()})
             log(f"{preset}: launches {counts}")
-            tag = "float32" if preset == "exact" else "bfloat16"
-            for kname in TPU_KERNEL:
-                assert counts.get(f"{kname}/{tag}", 0) > 0, (preset, kname, counts)
+            for key in PRESET_KERNELS[preset]:
+                assert counts.get(key, 0) > 0, (preset, key, counts)
             x_c, info, logits, y_inv = out
             assert x_c.shape == x.shape and logits.shape == (B, 10)
             assert y_inv.shape == ys[preset].shape
@@ -1339,8 +1825,22 @@ def main() -> int:
                 checks["cpu"] = check_against_cpu(canon, resnet, x, y, *out)
                 checks["rot90"] = check_equivariance(canon, x, x_c, info)
                 log(f"exact: vs CPU {checks['cpu']}; rot90 {checks['rot90']}")
+            else:
+                assert x_c.is_contiguous() == (preset == "serving"), preset
+                checks[f"{preset}:cpu"] = check_serving_against_cpu(
+                    canon, resnet, x, ys[preset], *out)
+                checks[f"{preset}:rot90"] = check_serving_equivariance(
+                    canon, x, x_c, info)
+                log(f"{preset}: vs CPU {checks[f'{preset}:cpu']}; "
+                    f"rot90 {checks[f'{preset}:rot90']}")
             del out, x_c, info, logits, y_inv
             times[preset] = time_preset(preset, canon, resnet, x, ys[preset])
+            times[preset]["to_network_layout_ms"] = cuda_ms(
+                lambda: tp.to_network_layout(x0, resnet), reps=10)
+        times["resnet50_bf16_param_dtype"] = time_param_dtype(
+            presets["serving"][1], {"nhwc": xs_in["serving"],
+                                        "nchw": xs_in["serving_nchw"]})
+        del x0, xs_in
 
         cont = build_continuous_presets(tp, presets["exact"][1],
                                         presets["serving"][1])
@@ -1404,7 +1904,7 @@ def main() -> int:
         orbit_launches = {}
         gi = build_group_inference(tp, resnet)
         gen_gi = torch.Generator().manual_seed(5)
-        batch = {"image": smooth_images(gen_gi, GI_B).to(DEVICE),
+        batch = {"image": smooth_images(gen_gi, GI_B).contiguous().to(DEVICE),
                  "label": torch.randint(0, GI_CLASSES, (GI_B,), generator=gen_gi)
                  .to(DEVICE)}
         for mod in (sw, orb):
@@ -1440,7 +1940,7 @@ def main() -> int:
             for mod in (sw, orb):
                 mod.reset_launches()
             src_log.start(path)
-            x_c, info = canon.canonicalize(x_opt)
+            x_c, info = pipe.canonicalize(x_opt)  # NCHW memory for the fp32 network
             logits = pipe.prediction_network(x_c)
             sync()
             src_log.stop()
@@ -1469,13 +1969,37 @@ def main() -> int:
                 checks[path]["rot90"] = check_optimized_shift(canon, x_opt)
             log(f"{path}: {json.dumps(checks[path])}")
             del x_c, info, logits
-            times[path] = time_optimized(path, sw, pipe, x_opt)
+            times[path] = time_optimized(path, sw, tp, pipe, x_opt)
         del opt, x_opt, resnet
+
+        gen_train = torch.Generator().manual_seed(11)
+        with torch.enable_grad():
+            for mode in ("bf16_fast", "fp32_exact"):
+                src_log.start(f"train_{mode}")
+                times[f"train_{mode}"] = train_phase(tp, sw, mode, gen_train)
+                src_log.stop()
+                launches.update({f"train_{mode}:{k}": v for k, v in
+                                 times[f"train_{mode}"]["validation_launches"].items()})
+            checks["train_vs_cpu"] = train_vs_cpu(tp, gen_train)
+        gen_inv = torch.Generator().manual_seed(12)
+        times["invert_diff"] = invert_diff_phase(tp, sw, gen_inv)
+        for key, row in times["invert_diff"].items():
+            launches[f"invert_diff_{key}:select_planes_rolled/{key.split('/')[1]}"] = (
+                row["launches"])
+        checks["select_gradients"] = select_gradient_phase(
+            sw, torch.Generator().manual_seed(13))
+        checks["k3"] = k3_checks
 
         kernels = []
         gen_dev = torch.Generator(device=DEVICE).manual_seed(3)
-        # K1 launches by source count over every path (K1a: one source)
-        k1_launches = {**launches, **src_log.select_launches()}
+        # launches over every main path: K1 by source count (K1a: one
+        # source), K2 and K3 by dtype
+        k1_launches = {
+            f"{n}/{t}": sum(v for k, v in launches.items()
+                            if k.split(":")[-1] == f"{n}/{t}")
+            for n in ("select_planes_rolled", "select_planes_nhwc")
+            for t in ("float32", "bfloat16")}
+        k1_launches.update(src_log.select_launches())
         for dtype in (torch.float32, torch.bfloat16):
             for kname in TPU_KERNEL:
                 kernels.append(kernel_entry(sw, kname, dtype, gen, bwidth,

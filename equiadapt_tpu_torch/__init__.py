@@ -8,10 +8,14 @@ a hand-written CUDA kernel under `csrc/`, built with nvcc at first use.
 Modules default to `device="cuda"`; pass `device="cpu"` explicitly to run the
 plain PyTorch versions of the kernels on the CPU.
 
-Ported so far, eval only:
+Ported so far:
 * the discrete (C_n / D_n) path: GCNN energy -> hard select ->
-  rotate-select (kernel K1) -> prediction network -> regular-rep invert
-  (kernel K2);
+  rotate-select (kernel K3 for an NHWC-contiguous batch, K1 for a view of
+  NCHW memory) -> prediction network -> regular-rep invert (kernel K2),
+  and its training: straight-through / Gumbel selection, the one-hot warp
+  blend, train-mode BatchNorm and dropout, the differentiable fused invert
+  (`invert_regular_fast_diff`, K2 forward and backward), the select
+  kernels' backward;
 * the continuous (SO(2) / O(2)) steerable path: steerable network ->
   rotation matrix -> warp, exact (kernel K7) or fast (kernels K5 + K6) ->
   prediction network -> scalar invert (the same warp kernels);
@@ -21,11 +25,18 @@ Ported so far, eval only:
 * the optimized (orbit-scoring) discrete canonicalizer: the batch's
   |G|-orbit (kernel K4 for quarter turns, static warps otherwise) ->
   `ConvNetwork` -> cosine scores against a reference vector -> select
-  (kernel K1);
-* the image-classification pipeline's eval half (`ImageClassifierPipeline`,
-  `classification_loss`, `make_eval_step`, `vanilla_inference`,
-  `group_inference`, whose orbit is K4), with the config taxonomy and the
-  registries.
+  (kernel K1 on NCHW memory, K3 on NHWC);
+* the image-classification pipeline (`ImageClassifierPipeline`,
+  `classification_loss`, the training half `TrainState`, `make_optimizer`,
+  `create_train_state`, `make_train_step`, and `make_eval_step`,
+  `vanilla_inference`, `group_inference`, whose orbit is K4), which hands
+  the batch to the canonicalizer in the memory layout its prediction
+  network runs fastest on (`to_network_layout`), with the config taxonomy
+  and the registries.
+
+The continuous, point-cloud and optimized families are eval only: call
+`.eval()` on them. The discrete family and the ResNets take `training` as
+an argument and ignore the module mode.
 """
 
 from equiadapt_tpu_torch.common import (
@@ -55,14 +66,22 @@ from equiadapt_tpu_torch.images import (
     optimization_specific_loss,
 )
 from equiadapt_tpu_torch.models import DGCNN, PointNet, ResNet18, ResNet50
-from equiadapt_tpu_torch.ops.group_action import get_action_on_image_features
+from equiadapt_tpu_torch.ops.group_action import (
+    get_action_on_image_features,
+    invert_regular_fast_diff,
+)
 from equiadapt_tpu_torch.ops.kernels.orbit import materialize_orbit, rot90_flip_orbit
 from equiadapt_tpu_torch.pipelines import (
     ImageClassifierPipeline,
     PointcloudClassificationPipeline,
+    TrainState,
     classification_loss,
+    create_train_state,
     group_inference,
     make_eval_step,
+    make_optimizer,
+    make_train_step,
+    to_network_layout,
     vanilla_inference,
 )
 from equiadapt_tpu_torch.pointcloud import (
@@ -88,6 +107,7 @@ from equiadapt_tpu_torch.utils import (
     get_image_prediction_network,
     get_pointcloud_canonicalizer,
     get_pointcloud_prediction_network,
+    flax_variables,
     load_flax_variables,
     load_yaml,
 )
@@ -135,10 +155,16 @@ __all__ = [
     "PointcloudClassificationPipeline",
     "ImageClassifierPipeline",
     "classification_loss",
+    "TrainState",
+    "make_optimizer",
+    "create_train_state",
+    "make_train_step",
     "make_eval_step",
+    "to_network_layout",
     "vanilla_inference",
     "group_inference",
     "get_action_on_image_features",
+    "invert_regular_fast_diff",
     "rot90_flip_orbit",
     "materialize_orbit",
     "Config",
@@ -150,4 +176,5 @@ __all__ = [
     "get_pointcloud_canonicalizer",
     "get_pointcloud_prediction_network",
     "load_flax_variables",
+    "flax_variables",
 ]

@@ -2,8 +2,9 @@
 
 Counterpart of `equiadapt_tpu/common/selector.py`. Ties go to the first
 maximum, as `jnp.argmax` and `torch.argmax` both pick. The Gumbel variant
-takes its noise as a tensor, so a caller (or a test) controls the draws,
-for instance from a `torch.Generator`.
+takes its noise as a tensor (a test hands the JAX noise across), or draws
+it from the `torch.Generator` given, as the JAX package draws it from its
+"gumbel" rng.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 __all__ = [
+    "gumbel_noise",
     "hard_onehot",
     "straight_through_onehot",
     "gumbel_softmax_onehot",
@@ -41,6 +43,16 @@ def straight_through_onehot(
     return hard + soft - soft.detach()
 
 
+def gumbel_noise(shape, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32) -> Tensor:
+    """Gumbel(0, 1) draws -log(-log(u)), u uniform in [tiny, 1), on the
+    generator's device (`jax.random.gumbel`'s construction)."""
+    tiny = torch.finfo(dtype).tiny
+    u = torch.rand(shape, generator=generator, dtype=dtype,
+                   device=generator.device)
+    return -torch.log(-torch.log(u.clamp(min=tiny)))
+
+
 def gumbel_softmax_onehot(
     group_activations: Tensor, gumbels: Tensor, tau: float = 1.0
 ) -> Tensor:
@@ -58,14 +70,22 @@ def select_onehot(
     beta: float = 1.0,
     training: bool = True,
     gumbels: Optional[Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> Tensor:
-    """Dispatch on the gradient trick, as the JAX package does."""
+    """Dispatch on the gradient trick, as the JAX package does. The
+    Gumbel trick in training takes `gumbels`, or draws them from
+    `generator`."""
     if gradient_trick == "straight_through":
         return straight_through_onehot(group_activations, beta=beta, training=training)
     if gradient_trick == "gumbel_softmax":
         if not training:
             return hard_onehot(group_activations)
         if gumbels is None:
-            raise ValueError("gumbel_softmax needs its noise during training")
+            if generator is None:
+                raise ValueError(
+                    "gumbel_softmax needs its noise (gumbels=) or a generator "
+                    "during training")
+            gumbels = gumbel_noise(group_activations.shape, generator,
+                                   group_activations.dtype)
         return gumbel_softmax_onehot(group_activations, gumbels)
     raise ValueError(f"Gradient trick {gradient_trick} not implemented")

@@ -1,4 +1,4 @@
-"""Discrete-group (C_n / D_n) image canonicalizers, eval path.
+"""Discrete-group (C_n / D_n) image canonicalizers.
 
 Counterpart of `equiadapt_tpu/images/canonicalization/discrete_group.py`
 (`DiscreteGroupImageCanonicalization`, `GroupEquivariantImageCanonicalization`,
@@ -11,18 +11,26 @@ Counterpart of `equiadapt_tpu/images/canonicalization/discrete_group.py`
    group-equivariant network, or, in the optimized variant, the cosine
    score of each element of the batch's |G|-orbit (kernel K4 for quarter
    turns) against a reference vector;
-3. hard argmax selection;
+3. hard argmax selection (eval), or a straight-through / Gumbel one-hot
+   (training);
 4. the D_n reflection blend;
-5. the rotate-select of each sample by its element, through kernel K1.
+5. eval: the rotate-select of each sample by its element, through kernel
+   K3 for an NHWC-contiguous batch or K1 for a view of NCHW memory
+   (`ops.kernels.select_warp.rotate_select`); training: the
+   `rotate_discrete` blend of the static warps with the rotation one-hot,
+   which carries the gradient to the energy network.
 
 `invert_canonicalization` goes through `ops.group_action` (kernel K2 for a
-regular rep).
+regular rep, in training too where the fused invert applies).
 
-Not ported yet: training (the `rotate_discrete` blend with a
-straight-through one-hot) and co-canonicalized targets (boxes and masks);
-see ROADMAP.md queue 1. The optimized variant's `orbit_sharding` (a mesh
-constraint) waits for `parallel/` (ROADMAP.md item 16). The JAX package's
-NCHW-spine serving branch is a TPU layout path with no counterpart here.
+`training` is an argument, as in the JAX package; the module mode is not
+read (the optimized variant, whose training is not ported, still raises in
+train mode). Random draws (dropout masks, Gumbel noise) come from the
+`generator` given to `canonicalize`. Not ported yet: co-canonicalized
+targets (boxes and masks, ROADMAP.md item 14) and the optimized variant's
+training. The optimized variant's `orbit_sharding` (a mesh constraint)
+waits for `parallel/` (ROADMAP.md item 16). The JAX package's NCHW-spine
+serving branch is a TPU layout path with no counterpart here.
 """
 
 from __future__ import annotations
@@ -58,9 +66,9 @@ __all__ = [
     "optimization_specific_loss",
 ]
 
-_TRAINING = (
-    "training is not ported yet (ROADMAP.md queue 1, training slice); "
-    "call .eval() and canonicalize with training=False"
+_OPT_TRAINING = (
+    "training of the optimized canonicalizer is not ported yet (ROADMAP.md "
+    "item 9); call .eval() and canonicalize with training=False"
 )
 
 
@@ -118,17 +126,23 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         return crop_and_resize(x, self.in_shape, self.input_crop_ratio,
                                self.resize_shape)
 
-    def get_group_activations(self, x: Tensor) -> Tuple[Tensor, Dict[str, Any]]:
+    def get_group_activations(
+        self, x: Tensor, training: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Tensor, Dict[str, Any]]:
         """Subclass hook: ((B, |G|) activations, extras dict)."""
         raise NotImplementedError
 
     def groupactivations_to_groupelement(
-        self, group_activations: Tensor
+        self, group_activations: Tensor, training: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[DiscreteGroupElement, Tensor]:
-        """Hard argmax -> (rotation degrees, reflection indicator)."""
+        """Argmax one-hot (straight-through or Gumbel in training) ->
+        (rotation degrees, reflection indicator), differentiable in the
+        one-hot."""
         onehot = select_onehot(
             group_activations, gradient_trick=self.gradient_trick,
-            beta=self.beta, training=False,
+            beta=self.beta, training=training, generator=generator,
         )
         angles = group_angles(self.num_rotations, device=onehot.device)
         if self.group_type == "roto-reflection":
@@ -143,22 +157,31 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         return DiscreteGroupElement(rotation, None), onehot
 
     def canonicalize(self, x: Tensor, targets: Optional[Any] = None, *,
-                     training: bool = False, **kwargs: Any):
-        """Map an NHWC batch to canonical pose: `(x_canon, info)`. Keyword
-        arguments go to the subclass's `get_group_activations`."""
-        if training or self.training:
-            raise NotImplementedError(_TRAINING)
+                     training: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     **kwargs: Any):
+        """Map an NHWC batch to canonical pose: `(x_canon, info)`.
+
+        training=True runs the energy network in train mode (batch
+        statistics, dropout masks drawn from `generator`), selects with the
+        straight-through (or Gumbel, noise from `generator`) one-hot and
+        warps with the `rotate_discrete` blend, so the loss reaches the
+        energy network. Eval selects the hard argmax and warps through the
+        select kernels. Further keyword arguments go to the subclass's
+        `get_group_activations`."""
         if targets is not None:
             raise NotImplementedError(
                 "co-canonicalized targets (boxes, masks) are not ported yet "
-                "(ROADMAP.md queue 1, segmentation)"
+                "(ROADMAP.md item 14, segmentation)"
             )
         in_dtype = x.dtype
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        acts, extras = self.get_group_activations(x, **kwargs)
+        acts, extras = self.get_group_activations(
+            x, training=training, generator=generator, **kwargs)
         acts = acts.float()  # selection stays fp32
-        element, onehot = self.groupactivations_to_groupelement(acts)
+        element, onehot = self.groupactivations_to_groupelement(
+            acts, training, generator)
         if element.reflection is not None:
             r = element.reflection[:, None, None, None].to(x.dtype)
             x = (1.0 - r) * x + r * hflip(x)
@@ -167,8 +190,12 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
             onehot[:, :n] + onehot[:, n:]
             if self.group_type == "roto-reflection" else onehot
         )
-        idx = torch.argmax(rot_onehot, dim=-1)
-        x = rotate_select(x, idx, n, -1.0, self.padding_mode, self.warp_mode)
+        if training:
+            x = rotate_discrete(x, rot_onehot.to(x.dtype), n, -1.0,
+                                self.padding_mode, self.warp_mode)
+        else:
+            idx = torch.argmax(rot_onehot, dim=-1)
+            x = rotate_select(x, idx, n, -1.0, self.padding_mode, self.warp_mode)
         if self.output_dtype != "compute":
             x = x.to(in_dtype)
         info = DiscreteCanonicalizationInfo(
@@ -186,9 +213,15 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         induced_rep_type: str = "regular", training: bool = False,
         **kwargs: Any,
     ) -> Tensor:
-        """Apply the stored element to canonical-frame NHWC outputs."""
+        """Apply the stored element to canonical-frame NHWC outputs. With
+        training=True the rotation one-hot of the info (the reflection coset
+        collapsed onto it) carries the gradient to the selection; the fiber
+        roll stays hard, as in the JAX package."""
+        rotation_onehot = None
         if training:
-            raise NotImplementedError(_TRAINING)
+            oh, n = info.onehot, info.num_rotations
+            rotation_onehot = oh[:, :n] + oh[:, n:] if oh.shape[-1] == 2 * n else oh
+            rotation_onehot = rotation_onehot.to(x_canonicalized_out.dtype)
         return get_action_on_image_features(
             x_canonicalized_out,
             num_rotations=info.num_rotations,
@@ -196,6 +229,7 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
             rotation_deg=info.element.rotation_deg,
             reflection=info.element.reflection,
             induced_rep_type=induced_rep_type,
+            rotation_onehot=rotation_onehot,
             mode=self.warp_mode,
         )
 
@@ -205,9 +239,12 @@ class GroupEquivariantImageCanonicalization(DiscreteGroupImageCanonicalization):
     activation vector. `group_type` / `num_rotations` must match the
     network's."""
 
-    def get_group_activations(self, x: Tensor) -> Tuple[Tensor, Dict[str, Any]]:
+    def get_group_activations(
+        self, x: Tensor, training: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Tensor, Dict[str, Any]]:
         x = self.transformations_before_canonicalization_network_forward(x)
-        return self.canonicalization_network(x), {}
+        return self.canonicalization_network(x, training, generator), {}
 
 
 class OptimizedGroupEquivariantImageCanonicalization(
@@ -219,8 +256,8 @@ class OptimizedGroupEquivariantImageCanonicalization(
     quarter turn of a square image, static warps otherwise); the network
     maps it to (G * B, out_vector_size) vectors, and element g of sample b
     scores the cosine of its vector with `reference_vector`, a (1, D)
-    parameter drawn from N(0, 1) (fixed unless `learn_ref_vec`; the port is
-    eval only). acts = scores.reshape(G, B).T.
+    parameter drawn from N(0, 1) (fixed unless `learn_ref_vec`; this
+    variant's training is not ported, and train mode raises). acts = scores.reshape(G, B).T.
 
     With `artifact_err_wt` > 0 each orbit image is also rotated by a random
     element and back (`rotate_discrete`), and the network's vectors of those
@@ -252,15 +289,20 @@ class OptimizedGroupEquivariantImageCanonicalization(
             requires_grad=learn_ref_vec)
 
     def group_augment(self, x: Tensor) -> Tensor:
-        """(B, h, w, C) -> (|G| * B, h, w, C) orbit, group-major."""
+        """(B, h, w, C) -> (|G| * B, h, w, C) orbit, group-major, in NHWC
+        memory whatever x's (K4 and the static warps walk NHWC rows; the
+        copy of the resized batch is small beside the orbit)."""
         return materialize_orbit(
-            x, self.num_rotations, group_type=self.group_type,
+            x.contiguous(), self.num_rotations, group_type=self.group_type,
             padding_mode=self.padding_mode, mode=self.warp_mode)
 
     def get_group_activations(
-        self, x: Tensor, generator: Optional[torch.Generator] = None,
+        self, x: Tensor, training: bool = False,
+        generator: Optional[torch.Generator] = None,
         artifact_idx: Optional[Tensor] = None,
     ) -> Tuple[Tensor, Dict[str, Any]]:
+        if training or self.training:
+            raise NotImplementedError(_OPT_TRAINING)
         x = self.transformations_before_canonicalization_network_forward(x)
         B = x.shape[0]
         G = self.num_group

@@ -1,4 +1,4 @@
-"""Discrete-group equivariant energy network (eval path).
+"""Discrete-group equivariant energy network.
 
 Counterpart of `equiadapt_tpu/images/networks/equivariant.py`:
 `EquivariantNetwork` (lift -> [fiber BatchNorm -> ReLU -> Dropout ->
@@ -6,7 +6,10 @@ group conv] x (L-2) -> group conv -> mean over (C, H, W)) with the
 `pool_after_lift` and `fused_pool_lift` serving options. Takes NHWC like the
 JAX module and runs NCHW inside. Submodules carry the names Flax gives
 their counterparts, so `utils.jax_weights.load_flax_variables` carries
-weights across by path.
+weights across by path. `training` is an argument, as in Flax: in training
+the fiber BatchNorms use batch statistics and update their running ones
+(`common.layers.BatchNorm`), and Dropout draws its masks from the
+`generator` given.
 
 `CustomEquivariantNetwork` and `EquivariantWideResNet` are not ported yet.
 """
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from equiadapt_tpu_torch.common.layers import BatchNorm, Dropout
 from equiadapt_tpu_torch.images.networks.group_conv import (
     RotationEquivariantConv,
     RotationEquivariantConvLift,
@@ -40,26 +44,20 @@ def fiber_mean_activations(y: Tensor, num_group: int) -> Tensor:
 class FiberBatchNorm(nn.Module):
     """BatchNorm sharing statistics across the group fiber, per field c:
     statistics over (batch, fiber, H, W), so the norm commutes with fiber
-    permutations.
-
-    Training-slice traps, for when train mode is ported: Flax's momentum m
-    is torch's 1 - m (0.9 -> 0.1), and Flax updates the running variance
-    with the biased batch variance where torch uses the unbiased one. Eval
-    reads the running statistics and is unaffected by either.
+    permutations. `momentum` is Flax's (see `common.layers.BatchNorm`).
     """
 
     def __init__(self, num_channels: int, num_group: int,
                  momentum: float = 0.9, epsilon: float = 1e-5, device="cuda"):
         super().__init__()
         self.num_group = num_group
-        self.BatchNorm_0 = nn.BatchNorm2d(
-            num_channels, eps=epsilon, momentum=1.0 - momentum, device=device
-        )
+        self.BatchNorm_0 = BatchNorm(num_channels, momentum, epsilon,
+                                     device=device)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         B, CG, H, W = x.shape
         G = self.num_group
-        y = self.BatchNorm_0(x.reshape(B, CG // G, G * H, W))
+        y = self.BatchNorm_0(x.reshape(B, CG // G, G * H, W), training)
         return y.reshape(B, CG, H, W)
 
 
@@ -94,26 +92,32 @@ class EquivariantNetwork(nn.Module):
         add(f"{lift.__name__}_0",
             lift(in_channels, co, fused_pool=fused_pool_lift, **common), "conv")
         add("FiberBatchNorm_0", FiberBatchNorm(co, G, device=device), "bn")
-        add("Dropout_0", nn.Dropout(dropout_rate), "drop")
+        add("Dropout_0", Dropout(dropout_rate), "drop")
         if pool_after_lift:
             self._layers.append(("", "pool"))
         for i in range(num_layers - 2):
             add(f"{gconv.__name__}_{i}", gconv(co, co, **common), "conv")
             add(f"FiberBatchNorm_{i + 1}", FiberBatchNorm(co, G, device=device), "bn")
-            add(f"Dropout_{i + 1}", nn.Dropout(dropout_rate), "drop")
+            add(f"Dropout_{i + 1}", Dropout(dropout_rate), "drop")
         add(f"{gconv.__name__}_{num_layers - 2}", gconv(co, co, **common), "conv")
 
     @property
     def num_group(self) -> int:
         return self.num_rotations * (2 if self.group_type == "roto-reflection" else 1)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        """NHWC images -> (B, |G|); `generator` draws the dropout masks in
+        training (on x's device)."""
         y = x.permute(0, 3, 1, 2).contiguous()
         for name, kind in self._layers:
+            layer = getattr(self, name, None)
             if kind == "pool":
                 y = F.avg_pool2d(y, 2, 2)
-                continue
-            y = getattr(self, name)(y)
-            if kind == "bn":
-                y = torch.relu(y)
+            elif kind == "conv":
+                y = layer(y)
+            elif kind == "bn":
+                y = torch.relu(layer(y, training))
+            else:
+                y = layer(y, training, generator)
         return fiber_mean_activations(y, self.num_group)

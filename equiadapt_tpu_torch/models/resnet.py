@@ -6,8 +6,14 @@ like the JAX module, NCHW inside. Submodules carry the names Flax gives
 their counterparts (`Conv_0`, `BatchNorm_0`, `Bottleneck_7`, `Dense_0`), so
 `utils.jax_weights.load_flax_variables` carries weights across by path.
 
-Flax's BatchNorm momentum 0.99 is torch's 0.01. `dtype` sets the
-parameters' and the computation's dtype (for example torch.bfloat16).
+`dtype` is the computation's dtype. Parameters are fp32, as Flax's
+default `param_dtype`: under dtype=bfloat16 the convolutions and the head
+cast their weights to bf16 on every call, and the BatchNorms keep fp32
+parameters and statistics with bf16 activations (`common.layers.BatchNorm`,
+Flax's momentum 0.99, the running variance updated with the biased batch
+variance). `training` is an argument of `forward`, as in Flax; the module
+mode is not read. `input_layout` names the memory layout the network runs
+fastest on, which `pipelines.classification` hands it.
 """
 
 from __future__ import annotations
@@ -19,14 +25,30 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from equiadapt_tpu_torch.common.layers import BatchNorm
+
 Tensor = torch.Tensor
 
 __all__ = ["ResNet", "BasicBlock", "Bottleneck", "ResNet18", "ResNet50",
            "WideResNet50", "WideResNet101"]
 
 
-def _bn(ch: int, device) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.01, device=device)
+def _bn(ch: int, device) -> BatchNorm:
+    return BatchNorm(ch, momentum=0.99, epsilon=1e-5, device=device)
+
+
+class _Conv(nn.Conv2d):
+    """Conv2d that computes in its input's dtype (weights cast per call)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class _Dense(nn.Linear):
+    """Linear that computes in its input's dtype (weights cast per call)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class BasicBlock(nn.Module):
@@ -34,22 +56,23 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, filters: int, stride: int = 1, device="cuda"):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, filters, 3, stride, 1, bias=False,
+        self.Conv_0 = _Conv(in_ch, filters, 3, stride, 1, bias=False,
                                 device=device)
         self.BatchNorm_0 = _bn(filters, device)
-        self.Conv_1 = nn.Conv2d(filters, filters, 3, 1, 1, bias=False,
+        self.Conv_1 = _Conv(filters, filters, 3, 1, 1, bias=False,
                                 device=device)
         self.BatchNorm_1 = _bn(filters, device)
         self.project = stride != 1 or in_ch != filters
         if self.project:
-            self.Conv_2 = nn.Conv2d(in_ch, filters, 1, stride, bias=False,
+            self.Conv_2 = _Conv(in_ch, filters, 1, stride, bias=False,
                                     device=device)
             self.BatchNorm_2 = _bn(filters, device)
 
-    def forward(self, x: Tensor) -> Tensor:
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = self.BatchNorm_1(self.Conv_1(y))
-        residual = self.BatchNorm_2(self.Conv_2(x)) if self.project else x
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
+        t = training
+        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), t))
+        y = self.BatchNorm_1(self.Conv_1(y), t)
+        residual = self.BatchNorm_2(self.Conv_2(x), t) if self.project else x
         return torch.relu(y + residual)
 
 
@@ -61,24 +84,25 @@ class Bottleneck(nn.Module):
         super().__init__()
         width = filters * width_mult
         out_ch = filters * 4
-        self.Conv_0 = nn.Conv2d(in_ch, width, 1, bias=False, device=device)
+        self.Conv_0 = _Conv(in_ch, width, 1, bias=False, device=device)
         self.BatchNorm_0 = _bn(width, device)
-        self.Conv_1 = nn.Conv2d(width, width, 3, stride, 1, bias=False,
+        self.Conv_1 = _Conv(width, width, 3, stride, 1, bias=False,
                                 device=device)
         self.BatchNorm_1 = _bn(width, device)
-        self.Conv_2 = nn.Conv2d(width, out_ch, 1, bias=False, device=device)
+        self.Conv_2 = _Conv(width, out_ch, 1, bias=False, device=device)
         self.BatchNorm_2 = _bn(out_ch, device)
         self.project = stride != 1 or in_ch != out_ch
         if self.project:
-            self.Conv_3 = nn.Conv2d(in_ch, out_ch, 1, stride, bias=False,
+            self.Conv_3 = _Conv(in_ch, out_ch, 1, stride, bias=False,
                                     device=device)
             self.BatchNorm_3 = _bn(out_ch, device)
 
-    def forward(self, x: Tensor) -> Tensor:
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = torch.relu(self.BatchNorm_1(self.Conv_1(y)))
-        y = self.BatchNorm_2(self.Conv_2(y))
-        residual = self.BatchNorm_3(self.Conv_3(x)) if self.project else x
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
+        t = training
+        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), t))
+        y = torch.relu(self.BatchNorm_1(self.Conv_1(y), t))
+        y = self.BatchNorm_2(self.Conv_2(y), t)
+        residual = self.BatchNorm_3(self.Conv_3(x), t) if self.project else x
         return torch.relu(y + residual)
 
 
@@ -91,7 +115,7 @@ class ResNet(nn.Module):
         num_classes: head size; None returns the pooled features.
         small_images: CIFAR stem (3x3 conv, no max pool).
         return_stages: return the four stage maps (NCHW) instead.
-        dtype: parameter and computation dtype.
+        dtype: computation dtype (parameters stay fp32).
     """
 
     def __init__(self, stage_sizes: Sequence[int], block, num_classes:
@@ -103,9 +127,9 @@ class ResNet(nn.Module):
         self.return_stages = return_stages
         self.dtype = dtype
         if small_images:
-            self.Conv_0 = nn.Conv2d(3, 64, 3, 1, 1, bias=False, device=device)
+            self.Conv_0 = _Conv(3, 64, 3, 1, 1, bias=False, device=device)
         else:
-            self.Conv_0 = nn.Conv2d(3, 64, 7, 2, 3, bias=False, device=device)
+            self.Conv_0 = _Conv(3, 64, 7, 2, 3, bias=False, device=device)
         self.BatchNorm_0 = _bn(64, device)
         base = block.func if isinstance(block, partial) else block
         self._stages = []
@@ -122,20 +146,30 @@ class ResNet(nn.Module):
             self._stages.append(names)
             filters *= 2
         self.Dense_0 = (
-            nn.Linear(in_ch, num_classes, device=device)
+            _Dense(in_ch, num_classes, device=device)
             if num_classes is not None else None
         )
-        self.to(dtype)
 
-    def forward(self, x: Tensor):
-        x = self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2).to(self.dtype)))
-        x = torch.relu(x)
+    @property
+    def input_layout(self) -> str:
+        """The memory of the NHWC input the convolutions run fastest on:
+        "nchw" in fp32, "nhwc" (channels-last) in reduced precision, as
+        ResNet-50 measures at batch 256, 224 px on an H100 (PERF.md
+        section 5: 71-72 ms on NCHW against 86 on NHWC in fp32, 20 on NHWC
+        against 28 on NCHW in bf16)."""
+        return "nchw" if self.dtype == torch.float32 else "nhwc"
+
+    def forward(self, x: Tensor, training: bool = False):
+        """NHWC images (any strides: an NHWC-contiguous batch runs the
+        convolutions channels-last) -> logits, or the pooled features."""
+        x = self.Conv_0(x.permute(0, 3, 1, 2).to(self.dtype))
+        x = torch.relu(self.BatchNorm_0(x, training))
         if not self.small_images:
             x = F.max_pool2d(x, 3, 2, 1)
         stages = []
         for names in self._stages:
             for name in names:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, training)
             stages.append(x)
         if self.return_stages:
             return tuple(stages)

@@ -1,19 +1,28 @@
-"""Steered rotate-select (K1) and fused rotate-select-roll (K2).
+"""Steered rotate-select (K1, K3) and fused rotate-select-roll (K2).
 
 Counterpart of `equiadapt_tpu/ops/pallas/select_warp.py`. The eval warp of
 `canonicalize` and the eval invert of a regular-rep feature map are both
-per-sample permutations of one selected source plane:
+per-sample permutations of one selected source image:
 
-* K1 `select_planes`: out[b, c] = rot90^{k[b]}(S_{src[b]}[b, c]);
+* K1 `select_planes`: out[b, c] = rot90^{k[b]}(S_{src[b]}[b, c]), NCHW;
+* K3 `select_planes_nhwc`: K1's function on NHWC-contiguous sources
+  (B, N, N, C), any C;
 * K2 `select_planes_rolled`: K1 on the fiber-rolled channel, then a hflip
   for reflected samples (D_n).
 
 The sources S are the batch and its static residual warps (`_c_n_decomposition`:
 rotate(x, sign * theta_g) == rot90^{k_of[g]}(rotate(x, residues[src_of[g]]))).
-Both wrappers launch the hand-written CUDA kernel of `csrc/select_warp.cu` for
-CUDA tensors, take the plain PyTorch version beside them for CPU tensors, and
-raise for anything else. `launches` counts the kernel launches of each
-wrapper, by dtype.
+Each wrapper launches the hand-written CUDA kernel of `csrc/select_warp.cu`
+for CUDA tensors, takes the plain PyTorch version beside it for CPU
+tensors, and raises for anything else. Each is a `torch.autograd.Function`:
+the select is linear in its sources, and its backward is one more launch of
+the same kernel (the inverse permutation, with the cotangent as the only
+source), then a mask per source. No gradient reaches the indices.
+`launches` counts the kernel launches of each wrapper, by dtype, backward
+launches included.
+
+`rotate_select` routes by memory layout: an NHWC-contiguous batch takes K3,
+a (B, H, W, C) view of NCHW memory takes K1 with no copy.
 """
 
 from __future__ import annotations
@@ -26,7 +35,9 @@ import torch
 
 from equiadapt_tpu_torch.ops.kernels import _build
 from equiadapt_tpu_torch.ops.warp import (
+    _static_rotate,
     _static_rotate_from_nchw,
+    rotate_twopass,
     rotate_twopass_from_nchw,
 )
 
@@ -36,8 +47,10 @@ __all__ = [
     "rotate_select",
     "rotate_roll_select",
     "select_planes",
+    "select_planes_nhwc",
     "select_planes_rolled",
     "select_planes_plain",
+    "select_planes_nhwc_plain",
     "launches",
     "reset_launches",
 ]
@@ -75,19 +88,27 @@ def _c_n_decomposition(n: int, sign: float):
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("select_warp")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = lib.eqt_select_warp
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp,
                        ci, ci, ci, ci, ci, vp]
+        fn.restype = ci
+    fn = lib.eqt_select_warp_nhwc
+    if fn.argtypes is None:
+        fn.argtypes = [ci, vp, vp, vp, vp, ci, vp, vp, vp, ci, ci, ci, vp]
         fn.restype = ci
     return lib
 
 
-def _check(sources: Sequence[Tensor], idx: Sequence[Tensor]) -> None:
+def _check(sources: Sequence[Tensor], idx: Sequence[Tensor],
+           nhwc: bool = False) -> None:
     if not 1 <= len(sources) <= MAX_SOURCES:
         raise ValueError(f"1 to {MAX_SOURCES} sources, got {len(sources)}")
-    B, C, H, W = sources[0].shape
+    if sources[0].dim() != 4:
+        raise ValueError(f"select kernels take 4-d sources, got {sources[0].dim()}-d")
+    B = sources[0].shape[0]
+    H, W = sources[0].shape[1:3] if nhwc else sources[0].shape[2:4]
     if H != W:
         raise ValueError(f"select kernels need square planes, got {H}x{W}")
     for s in sources:
@@ -96,6 +117,21 @@ def _check(sources: Sequence[Tensor], idx: Sequence[Tensor]) -> None:
     for t in idx:
         if t.shape != (B,):
             raise ValueError(f"per-sample index of shape ({B},), got {tuple(t.shape)}")
+
+
+def _selected(sources: Sequence[Tensor], src_idx: Tensor) -> Tensor:
+    b = torch.arange(sources[0].shape[0], device=sources[0].device)
+    src = src_idx.long().clamp(0, len(sources) - 1)
+    return torch.stack(list(sources))[src, b]
+
+
+def _rot90_per_sample(x: Tensor, k_idx: Tensor, dims) -> Tensor:
+    k = torch.remainder(k_idx.long(), 4)
+    out = torch.empty_like(x)
+    for kk in range(4):
+        m = k == kk
+        out[m] = torch.rot90(x[m], kk, dims=dims)
+    return out
 
 
 def select_planes_plain(
@@ -107,11 +143,9 @@ def select_planes_plain(
     num_group: int = 1,
     num_rotations: int = 1,
 ) -> Tensor:
-    """Plain PyTorch version of both kernels (same index semantics)."""
+    """Plain PyTorch version of K1 and K2 (same index semantics)."""
     B, C, H, W = sources[0].shape
-    b = torch.arange(B, device=sources[0].device)
-    src = src_idx.long().clamp(0, len(sources) - 1)
-    x = torch.stack(list(sources))[src, b]  # (B, C, H, W): selected planes
+    x = _selected(sources, src_idx)  # (B, C, H, W): selected planes
     if shift is not None:
         G, n = num_group, num_rotations
         p = torch.arange(C, device=x.device) % G
@@ -120,41 +154,107 @@ def select_planes_plain(
                         n + torch.remainder(p - n + s, n))
         chan = (torch.arange(C, device=x.device) // G) * G + q  # (B, C)
         x = torch.gather(x, 1, chan[:, :, None, None].expand(B, C, H, W))
-    k = torch.remainder(k_idx.long(), 4)
-    out = torch.empty_like(x)
-    for kk in range(4):
-        m = k == kk
-        out[m] = torch.rot90(x[m], kk, dims=(2, 3))
+    out = _rot90_per_sample(x, k_idx, (2, 3))
     if refl is not None:
         m = refl == 1
         out[m] = torch.flip(out[m], dims=(3,))
     return out
 
 
+def select_planes_nhwc_plain(sources: Sequence[Tensor], src_idx: Tensor,
+                             k_idx: Tensor) -> Tensor:
+    """Plain PyTorch version of K3: a stack of the sources indexed per
+    sample, then torch.rot90 over (H, W) per k."""
+    return _rot90_per_sample(_selected(sources, src_idx), k_idx, (1, 2))
+
+
+_NHWC = "select_planes_nhwc"
+
+
 def _launch(name: str, sources, src_idx, k_idx, shift, refl, G, n) -> Tensor:
     s0 = sources[0]
     if s0.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"select kernels take float32 or bfloat16, got {s0.dtype}")
-    B, C, N, _ = s0.shape
     if any(not s.is_contiguous() for s in sources):
-        raise ValueError("select kernels need NCHW-contiguous sources")
-    if B > 65535 or C > 65535:
-        raise ValueError(f"grid limit: B and C must be <= 65535, got {B}, {C}")
+        layout = "NHWC" if name == _NHWC else "NCHW"
+        raise ValueError(f"{name} needs {layout}-contiguous sources")
+    if name == _NHWC:
+        B, N, _, C = s0.shape
+    else:
+        B, C, N, _ = s0.shape
+    if B > 65535 or (name != _NHWC and C > 65535):
+        raise ValueError(f"grid limit: B (and C for NCHW) must be <= 65535, "
+                         f"got {tuple(s0.shape)}")
     idx = [t.to(torch.int32).contiguous() if t is not None else None
            for t in (src_idx, k_idx, shift, refl)]
     out = torch.empty_like(s0)
     ptrs = [s.data_ptr() for s in sources]
     ptrs += [ptrs[0]] * (MAX_SOURCES - len(ptrs))
-    err = _lib().eqt_select_warp(
-        _build.DTYPE_CODES[s0.dtype], *ptrs, len(sources), out.data_ptr(),
-        *[t.data_ptr() if t is not None else None for t in idx],
-        B, C, N, G, n, torch.cuda.current_stream(s0.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(s0.device).cuda_stream
+    code = _build.DTYPE_CODES[s0.dtype]
+    if name == _NHWC:
+        err = _lib().eqt_select_warp_nhwc(
+            code, *ptrs, len(sources), out.data_ptr(), idx[0].data_ptr(),
+            idx[1].data_ptr(), B, N, C, stream)
+    else:
+        err = _lib().eqt_select_warp(
+            code, *ptrs, len(sources), out.data_ptr(),
+            *[t.data_ptr() if t is not None else None for t in idx],
+            B, C, N, G, n, stream,
+        )
     if err != 0:
-        raise RuntimeError(f"select_warp kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     key = f"{name}/{str(s0.dtype).removeprefix('torch.')}"
     launches[key] = launches.get(key, 0) + 1
     return out
+
+
+def _select(name: str, sources, src_idx, k_idx, shift=None, refl=None,
+            G: int = 1, n: int = 1) -> Tensor:
+    """The kernel `name` on CUDA tensors, its plain version on CPU tensors."""
+    tensors = list(sources) + [t for t in (src_idx, k_idx, shift, refl)
+                               if t is not None]
+    if _build.route(tensors, "select kernels") == "cpu":
+        if name == _NHWC:
+            return select_planes_nhwc_plain(sources, src_idx, k_idx)
+        return select_planes_plain(sources, src_idx, k_idx, shift, refl, G, n)
+    return _launch(name, sources, src_idx, k_idx, shift, refl, G, n)
+
+
+class _Select(torch.autograd.Function):
+    """A select kernel as a linear map of its sources.
+
+    out[b] = P_b(S_{src[b]}[b]) with P_b = hflip^{r} rot90^{k} roll_{shift}
+    a permutation, so grad S_s[b] = [src[b] == s] P_b^{-1}(g[b]).
+    P_b^{-1} is the same kernel's permutation with the shift negated and
+    k' = -k, or k' = k under the hflip (rot90^{-k} hflip = hflip rot90^k).
+    """
+
+    @staticmethod
+    def forward(ctx, name, src_idx, k_idx, shift, refl, G, n, *sources):
+        ctx.name, ctx.G, ctx.n, ctx.num_sources = name, G, n, len(sources)
+        ctx.save_for_backward(src_idx, k_idx, shift, refl)
+        return _select(name, sources, src_idx, k_idx, shift, refl, G, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        src_idx, k_idx, shift, refl = ctx.saved_tensors
+        k_t = torch.remainder(-k_idx, 4)
+        shift_t = None if shift is None else -shift
+        if refl is not None:
+            k_t = torch.where(refl == 1, k_idx, k_t)
+        g = _select(ctx.name, [grad.contiguous()], torch.zeros_like(src_idx),
+                    k_t, shift_t, refl, ctx.G, ctx.n)
+        src = src_idx.long().clamp(0, ctx.num_sources - 1)
+        grads = []
+        for s in range(ctx.num_sources):
+            if not ctx.needs_input_grad[7 + s]:
+                grads.append(None)
+            elif ctx.num_sources == 1:
+                grads.append(g)
+            else:
+                grads.append(g.masked_fill((src != s).view(-1, 1, 1, 1), 0))
+        return (None,) * 7 + tuple(grads)
 
 
 def select_planes(sources: Sequence[Tensor], src_idx: Tensor,
@@ -162,9 +262,17 @@ def select_planes(sources: Sequence[Tensor], src_idx: Tensor,
     """K1: out[b, c] = rot90^{k[b]}(sources[src[b]][b, c]), NCHW."""
     sources = list(sources)
     _check(sources, (src_idx, k_idx))
-    if _build.route(sources + [src_idx, k_idx], "select kernels") == "cpu":
-        return select_planes_plain(sources, src_idx, k_idx)
-    return _launch("select_planes", sources, src_idx, k_idx, None, None, 1, 1)
+    return _Select.apply("select_planes", src_idx, k_idx, None, None, 1, 1,
+                         *sources)
+
+
+def select_planes_nhwc(sources: Sequence[Tensor], src_idx: Tensor,
+                       k_idx: Tensor) -> Tensor:
+    """K3: out[b] = rot90^{k[b]}(sources[src[b]][b]) over (H, W), for
+    NHWC-contiguous (B, N, N, C) sources; NHWC-contiguous output."""
+    sources = list(sources)
+    _check(sources, (src_idx, k_idx), nhwc=True)
+    return _Select.apply(_NHWC, src_idx, k_idx, None, None, 1, 1, *sources)
 
 
 def select_planes_rolled(
@@ -188,10 +296,8 @@ def select_planes_rolled(
         raise ValueError(f"regular rep: C={C} must divide by |G|={G} in (n, 2n)")
     if (refl is not None) != (G == 2 * n):
         raise ValueError("refl is given exactly for D_n (num_group == 2 n)")
-    if _build.route(sources + [src_idx, k_idx] + extra, "select kernels") == "cpu":
-        return select_planes_plain(sources, src_idx, k_idx, shift, refl, G, n)
-    return _launch("select_planes_rolled", sources, src_idx, k_idx, shift,
-                   refl, G, n)
+    return _Select.apply("select_planes_rolled", src_idx, k_idx, shift, refl,
+                         G, n, *sources)
 
 
 def _select_tables(idx: Tensor, num_rotations: int, sign: float):
@@ -209,12 +315,16 @@ def _select_tables(idx: Tensor, num_rotations: int, sign: float):
     return residues, src_idx, k_idx
 
 
-def _sources(x: Tensor, residues, padding_mode: str, mode: str):
-    """NCHW batch plus its residual warps, all in x's dtype."""
-    xn = x.permute(0, 3, 1, 2).contiguous()
-    warp = rotate_twopass_from_nchw if mode == "fast" else _static_rotate_from_nchw
-    return [xn] + [
-        warp(xn, r, padding_mode).to(x.dtype).contiguous() for r in residues[1:]
+def _sources(x: Tensor, residues, padding_mode: str, mode: str,
+             nhwc: bool):
+    """The batch plus its residual warps, all in x's dtype and contiguous:
+    x is (B, H, W, C) NHWC-contiguous with nhwc=True, else (B, C, H, W)."""
+    if nhwc:
+        warp = rotate_twopass if mode == "fast" else _static_rotate
+    else:
+        warp = rotate_twopass_from_nchw if mode == "fast" else _static_rotate_from_nchw
+    return [x] + [
+        warp(x, r, padding_mode).to(x.dtype).contiguous() for r in residues[1:]
     ]
 
 
@@ -226,16 +336,29 @@ def rotate_select(
     padding_mode: str = "border",
     mode: str = "exact",
 ) -> Tensor:
-    """out[b] = rotate(x[b], sign * theta_{idx[b]}) on square NHWC images,
-    through K1. mode="exact" warps the residual sources with static taps,
-    mode="fast" with the two-pass products. Returns NHWC (a view of the
-    kernel's NCHW output)."""
+    """out[b] = rotate(x[b], sign * theta_{idx[b]}) on square NHWC images.
+    mode="exact" warps the residual sources with static taps, mode="fast"
+    with the two-pass products. Routes by x's memory layout, with no switch:
+
+    * NHWC memory (x.is_contiguous()): NHWC residual sources and K3; the
+      output is NHWC-contiguous;
+    * a view of NCHW memory (x.permute(0, 3, 1, 2).is_contiguous()): NCHW
+      residual sources from that view, with no copy, and K1; the output is
+      a (B, H, W, C) view of NCHW memory;
+    * any other strides: one copy to NHWC memory, then K3.
+
+    Differentiable in x through the kernels' backward; no gradient reaches
+    idx."""
     B, H, W, C = x.shape
     if H != W:
         raise ValueError(f"rotate_select needs square images, got {H}x{W}")
     residues, src_idx, k_idx = _select_tables(idx, num_rotations, sign)
-    out = select_planes(_sources(x, residues, padding_mode, mode), src_idx, k_idx)
-    return out.permute(0, 2, 3, 1)
+    if not x.is_contiguous() and x.permute(0, 3, 1, 2).is_contiguous():
+        srcs = _sources(x.permute(0, 3, 1, 2), residues, padding_mode, mode,
+                        nhwc=False)
+        return select_planes(srcs, src_idx, k_idx).permute(0, 2, 3, 1)
+    srcs = _sources(x.contiguous(), residues, padding_mode, mode, nhwc=True)
+    return select_planes_nhwc(srcs, src_idx, k_idx)
 
 
 def rotate_roll_select(
@@ -250,14 +373,15 @@ def rotate_roll_select(
 ) -> Tensor:
     """Fused invert of a regular-rep NHWC feature map through K2: spatial
     rotate-select, hflip where refl == 1 (D_n) and the fiber roll by
-    `shift`. C = fields * |G| in the C-major / G-minor layout."""
+    `shift`. C = fields * |G| in the C-major / G-minor layout. Returns NHWC
+    (a view of the kernel's NCHW output); differentiable in x."""
     B, H, W, C = x.shape
     if H != W:
         raise ValueError(f"rotate_roll_select needs square images, got {H}x{W}")
     residues, src_idx, k_idx = _select_tables(idx, num_rotations, sign)
     num_group = num_rotations if refl is None else 2 * num_rotations
-    out = select_planes_rolled(
-        _sources(x, residues, padding_mode, mode), src_idx, k_idx,
-        shift, num_group, num_rotations, refl=refl,
-    )
+    srcs = _sources(x.permute(0, 3, 1, 2).contiguous(), residues, padding_mode,
+                    mode, nhwc=False)
+    out = select_planes_rolled(srcs, src_idx, k_idx, shift, num_group,
+                               num_rotations, refl=refl)
     return out.permute(0, 2, 3, 1)

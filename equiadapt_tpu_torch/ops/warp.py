@@ -253,12 +253,19 @@ def rotate_twopass_nchw(x: Tensor, angle_deg: float,
 
 def rotate_twopass(x: Tensor, angle_deg: float,
                    padding_mode: str = "border") -> Tensor:
-    """Two-pass static rotation of an NHWC batch (fast-mode residual)."""
+    """Two-pass static rotation of an NHWC batch (fast-mode residual), NHWC
+    in and out: the two products contract H, then W, with C minor."""
     B, H, W, C = x.shape
     k, r = _reduce_angle(angle_deg)
     if abs(r) < 1e-9:
         return torch.rot90(x, k, dims=(1, 2)) if k else x
-    return rotate_twopass_nchw(x, angle_deg, padding_mode).permute(0, 2, 3, 1)
+    if H != W:
+        raise ValueError("rotate_twopass requires square images")
+    dt = x.dtype
+    M1, M2 = _twopass_matrices(H, W, r, padding_mode, dt, x.device)
+    V = torch.einsum("yhw,bhwc->bywc", M1, x).to(dt)
+    out = torch.einsum("ywx,bywc->byxc", M2, V).to(dt)
+    return torch.rot90(out, k, dims=(1, 2)) if k else out
 
 
 def _residual_rotate(x: Tensor, angle_deg: float, padding_mode: str,

@@ -1,10 +1,15 @@
-"""Pipelines: canonicalizer plus prediction network (eval halves)."""
+"""Pipelines: canonicalizer plus prediction network."""
 
 from equiadapt_tpu_torch.pipelines.classification import (
     ImageClassifierPipeline,
+    TrainState,
     classification_loss,
+    create_train_state,
     group_inference,
     make_eval_step,
+    make_optimizer,
+    make_train_step,
+    to_network_layout,
     vanilla_inference,
 )
 from equiadapt_tpu_torch.pipelines.pointcloud import (
@@ -13,7 +18,9 @@ from equiadapt_tpu_torch.pipelines.pointcloud import (
     random_rotate,
 )
 
-__all__ = ["ImageClassifierPipeline", "classification_loss", "group_inference",
-           "make_eval_step", "vanilla_inference",
+__all__ = ["ImageClassifierPipeline", "TrainState", "classification_loss",
+           "create_train_state", "group_inference", "make_eval_step",
+           "make_optimizer", "make_train_step", "to_network_layout",
+           "vanilla_inference",
            "PointcloudClassificationPipeline", "classification_metrics",
            "random_rotate"]

@@ -1,32 +1,41 @@
-"""Image-classification pipeline, eval half.
+"""Image-classification pipeline: training and evaluation.
 
 Counterpart of `equiadapt_tpu/pipelines/classification.py`:
 
 * `ImageClassifierPipeline`: canonicalize -> predict, returning
-  `(logits, info)`;
+  `(logits, info)`; `training` and the `generator` of the random draws are
+  arguments, and `remat=True` recomputes the prediction network's
+  activations on the backward pass (`torch.utils.checkpoint`). The batch
+  is first put in the memory the prediction network runs fastest on
+  (`to_network_layout`), so the canonicalizer works in that memory and
+  hands its canonical image over with no conversion;
 * `classification_loss`: the task cross-entropy plus the prior and the
   optimization-specific (group-contrast) terms with their weights, and the
   metrics;
+* the training half: `TrainState` (the pipeline module, its optimizers
+  and schedulers, the step count), `make_optimizer` (the per-architecture
+  policy), `create_train_state` and `make_train_step`;
 * `make_eval_step`, `vanilla_inference` and `group_inference`, the
   test-time evaluators. `group_inference` sweeps every group element as one
   batched orbit (`ops.kernels.orbit.materialize_orbit`: kernel K4 for
   quarter turns) through one call of the model.
 
-The JAX functions take a `TrainState`; these take the pipeline module, which
-holds its own weights, and run it under `torch.no_grad()`. Call `.eval()`
-on it first (training is not ported). Not ported yet, with the training
-slice (ROADMAP.md item 9): `TrainState`, `make_optimizer`,
-`create_train_state`, `make_train_step` and the pipeline's `remat`.
+The JAX evaluators take a `TrainState`; these take the pipeline module,
+which holds its own weights, and run it under `torch.no_grad()`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import contextlib
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from equiadapt_tpu_torch.common.layers import frozen_batch_stats
 from equiadapt_tpu_torch.common.info import (
     IdentityCanonicalizationInfo,
     identity_metric,
@@ -39,32 +48,61 @@ from equiadapt_tpu_torch.ops.kernels.orbit import materialize_orbit
 
 Tensor = torch.Tensor
 
-__all__ = ["ImageClassifierPipeline", "classification_loss", "make_eval_step",
-           "vanilla_inference", "group_inference"]
+__all__ = ["ImageClassifierPipeline", "to_network_layout", "TrainState",
+           "classification_loss",
+           "make_optimizer", "create_train_state", "make_train_step",
+           "make_eval_step", "vanilla_inference", "group_inference"]
+
+
+def to_network_layout(x: Tensor, network: nn.Module) -> Tensor:
+    """The NHWC batch x in the memory `network.input_layout` names: an
+    NHWC-contiguous batch becomes a (B, H, W, C) view of NCHW memory (one
+    copy) for a network that runs fastest on NCHW (ResNet in fp32); x is
+    returned as it is otherwise. The canonicalizer's select routes by that
+    memory (`ops.kernels.select_warp.rotate_select`: K1 on NCHW, K3 on
+    NHWC), and its canonical image keeps it."""
+    if getattr(network, "input_layout", "nhwc") == "nchw" and x.is_contiguous():
+        return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return x
 
 
 class ImageClassifierPipeline(nn.Module):
-    """canonicalize -> predict: NHWC images -> (logits, info)."""
+    """canonicalize -> predict: NHWC images -> (logits, info).
+
+    With `remat=True` the prediction network's activations are recomputed
+    on the backward pass in training (`torch.utils.checkpoint`, not
+    reentrant); the recomputation leaves the BatchNorm statistics alone,
+    as Flax's `nn.remat` does."""
 
     def __init__(self, canonicalizer: nn.Module, prediction_network: nn.Module,
                  remat: bool = False):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat (activation rematerialization) is for training, which "
-                "is not ported yet (ROADMAP.md item 9)")
         self.canonicalizer = canonicalizer
         self.prediction_network = prediction_network
+        self.remat = remat
 
-    def forward(self, x: Tensor, training: bool = False):
-        x_canon, info = self.canonicalizer(x, training=training)
-        return self.prediction_network(x_canon), info
+    def forward(self, x: Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        kw = {} if generator is None else {"generator": generator}
+        x = to_network_layout(x, self.prediction_network)
+        x_canon, info = self.canonicalizer(x, training=training, **kw)
+        if not training:
+            return self.prediction_network(x_canon), info
+        net = self.prediction_network
+        if not self.remat:
+            return net(x_canon, training=True), info
+        logits = checkpoint(
+            lambda xc: net(xc, training=True), x_canon, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), frozen_batch_stats(net)))
+        return logits, info
 
     def invert(self, info, y: Tensor, **kw: Any) -> Tensor:
         return self.canonicalizer.invert_canonicalization(info, y, **kw)
 
     def canonicalize(self, x: Tensor, training: bool = False):
-        """(x_canon, info) without the prediction pass."""
+        """(x_canon, info) without the prediction pass, in the network's
+        memory layout."""
+        x = to_network_layout(x, self.prediction_network)
         return self.canonicalizer(x, training=training)
 
 
@@ -107,6 +145,126 @@ def classification_loss(
     # NaN guard of the reference's `assert not torch.isnan(loss)`
     metrics["loss/finite"] = torch.isfinite(loss).float()
     return loss, metrics
+
+
+@dataclass
+class TrainState:
+    """The port's train state: the pipeline module (parameters and
+    BatchNorm statistics), the optimizers of its parameter groups, the
+    schedulers stepped once per train step, and the step count."""
+
+    model: nn.Module
+    optimizers: Sequence[torch.optim.Optimizer]
+    schedulers: Sequence[Any] = ()
+    step: int = 0
+
+    def apply_gradients(self) -> None:
+        """One optimizer step of every group, then the schedulers."""
+        for opt in self.optimizers:
+            opt.step()
+        for sched in self.schedulers:
+            sched.step()
+        self.step += 1
+
+
+def _groups(model: nn.Module) -> Dict[str, List[nn.Parameter]]:
+    """Trainable parameters by top-level module name: "canonicalizer" or
+    "prediction" (everything else), the JAX package's labels."""
+    groups: Dict[str, List[nn.Parameter]] = {"canonicalizer": [], "prediction": []}
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            top = name.split(".")[0]
+            groups["canonicalizer" if top == "canonicalizer" else "prediction"].append(p)
+    return groups
+
+
+def make_optimizer(
+    model: nn.Module,
+    *,
+    architecture: str = "resnet50",
+    dataset_name: str = "cifar10",
+    learning_rate: float = 1e-3,
+    canonicalization_learning_rate: float = 1e-3,
+    weight_decay: float = 1e-4,
+    freeze_prediction: bool = False,
+    milestones: Tuple[int, ...] = (),
+    decay_factor: float = 0.1,
+) -> Tuple[List[torch.optim.Optimizer], List[Any]]:
+    """The JAX package's per-architecture policy as (optimizers, schedulers).
+
+    ResNet-50 off MNIST: SGD with momentum 0.9 and `weight_decay` added to
+    the gradient (optax.chain(add_decayed_weights, sgd)), its learning rate
+    scaled by `decay_factor` at each milestone step (MultiStepLR, stepped
+    once per train step). Otherwise AdamW with `weight_decay`. The
+    canonicalizer takes AdamW at `canonicalization_learning_rate` with
+    optax's default decay, 1e-4 (torch's default is 1e-2). A frozen
+    prediction network is left out of the optimizers: AdamW would still
+    decay a parameter whose update optax sets to zero."""
+    groups = _groups(model)
+    optimizers: List[torch.optim.Optimizer] = []
+    schedulers: List[Any] = []
+    pred = groups["prediction"]
+    if pred and not freeze_prediction:
+        if architecture == "resnet50" and "mnist" not in dataset_name:
+            opt = torch.optim.SGD(pred, lr=learning_rate, momentum=0.9,
+                                  weight_decay=weight_decay)
+            if milestones:
+                schedulers.append(torch.optim.lr_scheduler.MultiStepLR(
+                    opt, milestones=list(milestones), gamma=decay_factor))
+        else:
+            opt = torch.optim.AdamW(pred, lr=learning_rate,
+                                    weight_decay=weight_decay)
+        optimizers.append(opt)
+    if groups["canonicalizer"]:
+        optimizers.append(torch.optim.AdamW(
+            groups["canonicalizer"], lr=canonicalization_learning_rate,
+            weight_decay=1e-4))
+    return optimizers, schedulers
+
+
+def create_train_state(
+    model: nn.Module,
+    tx: Tuple[Sequence[torch.optim.Optimizer], Sequence[Any]],
+) -> TrainState:
+    """A `TrainState` at step 0 for `model` (which holds its weights) and
+    `tx` = (optimizers, schedulers), as `make_optimizer` returns."""
+    optimizers, schedulers = tx
+    return TrainState(model=model, optimizers=list(optimizers),
+                      schedulers=list(schedulers))
+
+
+def make_train_step(loss_kwargs: Dict[str, Any], watch_gradients: bool = False):
+    """train_step(state, batch, generator=None) -> (state, metrics).
+
+    One forward in training mode (BatchNorm statistics updated, dropout
+    masks and Gumbel noise drawn from `generator`), `classification_loss`,
+    the backward pass and one optimizer step; the state is updated in
+    place and returned. watch_gradients=True adds `grad/<subtree>/norm`
+    for each top-level module and `grad/global_norm`."""
+
+    def train_step(state: TrainState, batch: Dict[str, Tensor],
+                   generator: Optional[torch.Generator] = None):
+        model = state.model
+        for opt in state.optimizers:
+            opt.zero_grad(set_to_none=True)
+        logits, info = model(batch["image"], training=True, generator=generator)
+        loss, metrics = classification_loss(logits, batch["label"], info,
+                                            **loss_kwargs)
+        loss.backward()
+        if watch_gradients:
+            total = torch.zeros((), device=loss.device)
+            for name, child in model.named_children():
+                sq = torch.zeros((), device=loss.device)
+                for p in child.parameters():
+                    if p.grad is not None:
+                        sq = sq + torch.sum(torch.square(p.grad.float()))
+                metrics[f"grad/{name}/norm"] = torch.sqrt(sq)
+                total = total + sq
+            metrics["grad/global_norm"] = torch.sqrt(total)
+        state.apply_gradients()
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
 
 
 def make_eval_step(loss_kwargs: Dict[str, Any]):

@@ -13,7 +13,7 @@ from equiadapt_tpu_torch.utils.config import (
     compose_config,
     load_yaml,
 )
-from equiadapt_tpu_torch.utils.jax_weights import load_flax_variables
+from equiadapt_tpu_torch.utils.jax_weights import flax_variables, load_flax_variables
 from equiadapt_tpu_torch.utils.registry import (
     get_image_canonicalization_network,
     get_image_canonicalizer,
@@ -33,6 +33,7 @@ __all__ = [
     "TrainingLossConfig",
     "compose_config",
     "load_yaml",
+    "flax_variables",
     "load_flax_variables",
     "get_image_canonicalization_network",
     "get_image_canonicalizer",

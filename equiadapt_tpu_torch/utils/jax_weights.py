@@ -24,6 +24,10 @@ It raises on a leaf it cannot place and on a torch parameter or persistent
 buffer left unfilled (other than BatchNorm's `num_batches_tracked`).
 Non-persistent buffers (constants built from the configuration) are not
 weights and are not filled.
+
+`flax_variables(module)` is the inverse: the module's parameters and
+BatchNorm statistics as a Flax-path tree of numpy arrays (fp32), in Flax's
+layouts, for comparing a trained port with a trained Flax model.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from equiadapt_tpu_torch.images.networks.steerable import (
 )
 from equiadapt_tpu_torch.pointcloud.vector_neurons import VNBilinear
 
-__all__ = ["load_flax_variables", "flax_placements"]
+__all__ = ["load_flax_variables", "flax_placements", "flax_variables"]
 
 _BN_NAMES = {
     ("params", "scale"): "weight",
@@ -148,3 +152,42 @@ def load_flax_variables(module: nn.Module,
         for name, array in filled.items():
             targets[name].copy_(torch.from_numpy(np.array(array)))
     return module
+
+
+_BN_LEAVES = {v: k for k, v in _BN_NAMES.items()}
+
+
+def _unconvert(owner: nn.Module, name: str, value: np.ndarray):
+    """(collection, Flax leaf, array in Flax layout) for one torch tensor."""
+    if isinstance(owner, nn.modules.batchnorm._BatchNorm):
+        return (*_BN_LEAVES[name], value)
+    if isinstance(owner, nn.Conv2d) and name == "weight":
+        return "params", "kernel", value.transpose(2, 3, 1, 0)
+    if isinstance(owner, nn.Linear) and name == "weight":
+        return "params", "kernel", value.T
+    if isinstance(owner, (nn.Conv2d, nn.Linear)) and name == "bias":
+        return "params", "bias", value
+    if isinstance(owner, NormBatchNorm) and name == "norm_sq":
+        return "batch_stats", name, value
+    if name in dict(owner.named_parameters(recurse=False)):
+        return "params", name, value
+    raise KeyError(f"no Flax leaf for {type(owner).__name__}.{name}")
+
+
+def flax_variables(module: nn.Module) -> Dict[str, Dict[str, Any]]:
+    """{"params": ..., "batch_stats": ...} of `module` as nested dicts of
+    fp32 numpy arrays keyed by Flax paths; the inverse of
+    `load_flax_variables`."""
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for name, tensor in _targets(module).items():
+        *scope, attr = name.split(".")
+        owner = module.get_submodule(".".join(scope))
+        value = tensor.detach().float().cpu().numpy().copy()  # a snapshot
+        collection, leaf, array = _unconvert(owner, attr, value)
+        node = out[collection]
+        for key in scope:
+            node = node.setdefault(key, {})
+        node[leaf] = array
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out

@@ -147,7 +147,9 @@ def test_registry_prediction_and_pointcloud_factories():
                         "prediction.dtype=bfloat16")
     net = treg.get_image_prediction_network(bf16.prediction, 10, False, device="cpu")
     assert [len(s) for s in net._stages] == [2, 2, 2, 2]
-    assert net.BasicBlock_0.Conv_0.weight.dtype == torch.bfloat16
+    # bf16 computation over fp32 parameters, Flax's dtype / param_dtype split
+    assert net.dtype == torch.bfloat16
+    assert net.BasicBlock_0.Conv_0.weight.dtype == torch.float32
     pc = cfg.override("canonicalization.canonicalization_type=continuous_group",
                       "canonicalization.network_hyperparams.knn_mode=fused")
     canon = treg.get_pointcloud_canonicalizer(pc.canonicalization, device="cpu")
@@ -277,8 +279,10 @@ def test_group_and_vanilla_inference_match_jax(num_rotations, group_type):
 def test_pipeline_guards():
     canon = tp.IdentityCanonicalization()
     net = torch.nn.Identity()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tcls.ImageClassifierPipeline(canon, net, remat=True)
+    # remat is ported: it recomputes the prediction network in training
+    pipe = tcls.ImageClassifierPipeline(canon, net, remat=True)
+    assert pipe.remat and torch.equal(pipe(torch.ones(2, 4, 4, 3))[0],
+                                      torch.ones(2, 4, 4, 3))
     logits = torch.randn(4, 10)
     labels = torch.zeros(4, dtype=torch.int64)
     info = tp.DiscreteCanonicalizationInfo(torch.zeros(4, 4), torch.zeros(4, 4), None)
