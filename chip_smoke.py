@@ -21,6 +21,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and one bf16 ulp (bf16), on ragged small cases and the main-path
      shapes, fp32 and bf16, both padding modes, with a NaN rotation in
      every batch (its sample must be all NaN, the others finite);
+   - K5 bit for bit as integers (a NaN payload and a -0.0 in every input)
+     and K7 within its bar on 120 wider cases: sizes 17, 33, 40, 97, 224,
+     C in {1, 3, 4, 5, 8, 16}, both paddings and dtypes, so both launch
+     paths of each (word, and tile or element); each also on a
+     16-byte-misaligned view of the same values, which must take the tile
+     (K5) or element (K7) path;
+   - the gradient guard: K4, K5, K6, K7 and the fast warp, each with a
+     CUDA input that requires grad, must raise under grad mode without
+     launching and run under torch.no_grad();
 4. discrete main path at full width: batch 256, 224 px, C8 GCNN energy
    (3 -> 8 channels, 3x3, 2 layers), ResNet-50 (10 classes) and the
    invert of a (256, 224, 224, 16) regular-rep map, in the two presets of
@@ -119,7 +128,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the overhead over the bare ResNet-50 at 96 px and the canonicalizer's
    parts; and per kernel its time, its bound, its plain version's time,
    one PyTorch call's time where one computes the same function, its
-   launches and, for K1 / K3 / K2, the time of its backward.
+   launches and, for K1 / K3 / K2, the time of its backward. Kernel and
+   library times are medians of 5 windows of CUDA events, with their min
+   and max, the kernel's and the library call's windows taking turns.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
@@ -204,6 +215,9 @@ OPT_SYMMETRIC_CROP = 0.875
 # reflections, sign)
 ORBIT_SHAPES = {"group_inference": (GI_B, IMAGE, 3, 4, False, 1.0),
                 "optimized_d4": (OPT_B, OPT_IMAGE, 3, 4, True, -1.0)}
+# timed windows behind each kernel time of the `kernels` line (the median,
+# with the min and max beside it)
+WINDOWS = 5
 
 
 def log(*a):
@@ -238,6 +252,25 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def windowed_ms(fns, reps: int, windows: int = WINDOWS, warmup: int = 2):
+    """Device time in ms of each fn() of `fns` (name -> fn), by CUDA events
+    over `windows` windows of `reps` calls, the fns taking turns window by
+    window: {name: median over the windows, name + "_range": [min, max]}."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(windows):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(fn, reps=reps, warmup=0))
+    out = {}
+    for name, ts in times.items():
+        ts = sorted(ts)
+        out[name] = ts[len(ts) // 2]
+        out[f"{name}_range"] = [ts[0], ts[-1]]
+    return out
 
 
 def check_kernels(sw, gen):
@@ -283,13 +316,13 @@ def rotations(theta):
 
 
 def continuous_inputs(b, H, W, C, dtype, gen):
-    """Images in [0, 1], quarter-turn indices, residual angles in
-    [-pi/4, pi/4] and rotations over the circle; sample 0 of r and R is NaN
-    (a zero steerable vector normalizes to a NaN rotation). Drawn on the
-    generator's device."""
+    """Images in [0, 1], quarter-turn indices (int32, as the fast warp
+    hands them to K5), residual angles in [-pi/4, pi/4] and rotations over
+    the circle; sample 0 of r and R is NaN (a zero steerable vector
+    normalizes to a NaN rotation). Drawn on the generator's device."""
     dev = dict(generator=gen, device=gen.device)
     x = torch.rand(b, H, W, C, **dev).to(DEVICE, dtype)
-    k = torch.randint(-8, 8, (b,), **dev).to(DEVICE)
+    k = torch.randint(-8, 8, (b,), **dev).to(DEVICE, torch.int32)
     r = (torch.rand(b, **dev) * 2 - 1) * (math.pi / 4)
     R = rotations((torch.rand(b, **dev) * 2 - 1) * math.pi)
     r[0] = float("nan")
@@ -351,6 +384,99 @@ def check_continuous_kernels(sr, bw, gen):
     log(f"continuous kernel checks: {n_checked} small cases within their bars")
 
 
+def check_k5_k7_wide(sr, bw, gen):
+    """K5 bit for bit (compared as integers, a NaN payload and a -0.0 in
+    every input) and K7 within its bar against their plain versions: sizes
+    17, 33, 40, 97 and 224 (ragged 32 x 32 tiles), C in {1, 3, 4, 5, 8, 16}
+    (both launch paths of each, in each dtype), both paddings, fp32 and
+    bf16, every k in every batch and a NaN rotation in sample 0 (K7: its
+    sample all NaN, the others finite). Each is also run on a
+    16-byte-misaligned view of the same values, which takes the element
+    (K7) or tile (K5) path. Launches here are not counted as the main
+    paths'."""
+    cases, paths = 0, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in (17, 33, 40, 97, 224):
+            b = 3 if N == 224 else 5
+            for C in (1, 3, 4, 5, 8, 16):
+                x, _, _, R = continuous_inputs(b, N, N, C, dtype, gen)
+                k = torch.arange(b, device=DEVICE) - 4 * (torch.arange(b, device=DEVICE) % 3)
+                xp = with_payloads(x.clone())
+                view = torch.empty(x.numel() + 1, dtype=dtype, device=DEVICE)[1:].view_as(x)
+                view.copy_(x)
+                view_p = torch.empty(x.numel() + 1, dtype=dtype, device=DEVICE)[1:].view_as(x)
+                view_p.copy_(xp)
+                assert bw._path(view, x) == "element" and sr._select_path(view_p, x) == "tile"
+                for padding in ("border", "zeros"):
+                    c = N // 2
+                    ref = sr.rot90_centered_select_plain(xp, k, c, c, padding)
+                    for inp in (xp, view_p):
+                        got = sr.rot90_centered_select(inp, k, c, c, padding)
+                        sync()
+                        assert torch.equal(orbit_bits(got), orbit_bits(ref)), (
+                            "K5", dtype, N, C, padding, inp is view_p)
+                        paths.add(("K5", sr._select_path(inp, got)))
+                    ref = bw._warp_center_affine(x, R, padding)
+                    for inp in (x, view):
+                        got = bw.warp_rotate_center_exact(inp, R, padding)
+                        sync()
+                        within_bar(got, ref, x)
+                        assert bool(torch.isnan(got[0].float()).all()), ("K7", N, C)
+                        assert bool(torch.isfinite(got[1:].float()).all()), ("K7", N, C)
+                        paths.add(("K7", bw._path(inp, got)))
+                    cases += 1
+    assert paths == {("K5", "word"), ("K5", "tile"), ("K7", "word"), ("K7", "element")}, paths
+    log(f"K5 / K7 wide checks: {cases} cases, each on an aligned and a "
+        f"misaligned input; paths {sorted(paths)}")
+    return {"cases": cases, "paths": sorted("/".join(p) for p in paths)}
+
+
+def grad_guard_phase(orb, sr, bw, gen):
+    """K4-K7 (and the fast warp K5 + K6) with CUDA inputs that require grad:
+    each wrapper must raise under grad mode before it launches, and under
+    torch.no_grad() give what it gives for inputs that do not require grad.
+    Launches here are not counted as the main paths'."""
+    size = 40
+    x = torch.rand(2, size, size, 3, generator=gen).to(DEVICE)
+    R = rotations(torch.tensor([0.3, -2.0])).to(DEVICE)
+    r = torch.tensor([0.3, -0.5], device=DEVICE)
+    k = torch.tensor([1, 3], device=DEVICE)
+    c = size // 2
+    calls = {  # name -> (call, inputs that may require grad)
+        "K4": (lambda x, R, r: orb.rot90_flip_orbit(x, 4, True), ("x",)),
+        "K5": (lambda x, R, r: sr.rot90_centered_select(x, k, c, c, "border"), ("x",)),
+        "K6": (lambda x, R, r: sr.shear_rotate_residual(x, r, float(c), float(c)),
+               ("x", "r")),
+        "K7": (lambda x, R, r: bw.warp_rotate_center_exact(x, R, "zeros"), ("x", "R")),
+        "K5+K6": (lambda x, R, r: sr.warp_rotate_center_fast(x, R), ("x", "R")),
+    }
+    refused = 0
+    for name, (call, inputs) in calls.items():
+        with torch.no_grad():
+            want = call(x, R, r)
+        for which in inputs:
+            args = {"x": x, "R": R, "r": r}
+            args[which] = args[which].clone().requires_grad_(True)
+            before = {**orb.launches, **sr.launches, **bw.launches}
+            raised = None
+            with torch.enable_grad():
+                try:
+                    call(**args)
+                except RuntimeError as e:
+                    raised = str(e)
+            assert raised is not None and "no backward on the card" in raised, (
+                name, which, raised)
+            assert {**orb.launches, **sr.launches, **bw.launches} == before, (name, which)
+            with torch.no_grad():
+                got = call(**args)
+            sync()
+            assert got.grad_fn is None and torch.equal(got, want), (name, which)
+            refused += 1
+    log(f"gradient guard: {refused} calls with an input that requires grad "
+        f"raised under grad mode and ran under torch.no_grad()")
+    return {"refused": refused}
+
+
 def main_shape_inputs(sw, gen, C, dtype, rolled, nhwc=False):
     """Sources and indices at a main-path shape: the batch and its 45-degree
     residual warp (C8, two sources), NCHW or NHWC."""
@@ -378,7 +504,7 @@ def kernel_call(sw, name, srcs, src, k, shift):
     return getattr(sw, name)(srcs, src, k)
 
 
-def gather_ms(sw, name, srcs, src, k, shift, got):
+def gather_call(sw, name, srcs, src, k, shift, got):
     """Yardstick: one torch.gather over the stacked sources with the flat
     index of the same permutation, built outside the timed window (by the
     plain version run on source-index values); checked equal to the
@@ -391,9 +517,7 @@ def gather_ms(sw, name, srcs, src, k, shift, got):
     flat = torch.stack(srcs).reshape(-1)
     run = lambda: torch.gather(flat, 0, idx)
     assert torch.equal(run().view_as(got), got), "gather yardstick differs"
-    ms = cuda_ms(run, reps=10)
-    del flat, idx
-    return ms
+    return run
 
 
 def backward_ms(sw, name, srcs, src, k, shift):
@@ -423,9 +547,10 @@ def kernel_entry(sw, name, dtype, gen, bw, launches, one_source=False):
     sync()
     assert torch.equal(orbit_bits(got), orbit_bits(ref)), (name, dtype, "main-path shape")
     err = (got.float() - ref.float()).abs().max().item()
-    ms = cuda_ms(run, reps=20)
+    lib = gather_call(sw, name, srcs, src, k, shift, got)
+    timed = windowed_ms({"ms": run, "library_ms": lib}, reps=10)
+    del lib
     plain_ms = cuda_ms(plain, reps=3, warmup=1)
-    library_ms = gather_ms(sw, name, srcs, src, k, shift, got)
     bwd_ms = backward_ms(sw, name, srcs, src, k, shift)
     nbytes = 2 * got.numel() * got.element_size() + sum(
         t.numel() * t.element_size() for t in (src, k, shift) if t is not None)
@@ -441,8 +566,8 @@ def kernel_entry(sw, name, dtype, gen, bw, launches, one_source=False):
         "name": f"{name}[{tag}]", "route": "cuda", "source": SOURCE,
         "replaces": replaces,
         "launches": launches.get(f"{name}/{tag}", 0),
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+        "max_abs_err": err, **timed, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes",
         "library": "torch.gather, precomputed int64 index",
         "backward_ms": bwd_ms, "shape": shape, "bytes": nbytes,
     }
@@ -498,22 +623,23 @@ def continuous_measure(sr, bw, name, dtype, C, padding, gen, bwidth):
         err = 0.0
     else:
         err = within_bar(got, ref, x)
-    out = {"ms": cuda_ms(run, reps=20), "plain_ms": cuda_ms(plain, reps=3, warmup=1),
-           "max_abs_err": err, "library_ms": None,
+    out = {"plain_ms": cuda_ms(plain, reps=3, warmup=1), "max_abs_err": err,
            "bound_ms": 2 * x.numel() * x.element_size() / bwidth * 1e3,
            "shape": [B, IMAGE, IMAGE, C], "padding": padding}
+    fns = {"ms": run}
     if name == "rot90_centered_select":
-        lib = rot90_gather_call(sr, x, k, padding, got)
-        out["library_ms"] = cuda_ms(lib, reps=10)
+        fns["library_ms"] = rot90_gather_call(sr, x, k, padding, got)
         out["library"] = "torch.gather, precomputed int64 index, one zero prepended"
-        del lib
+        out["path"] = sr._select_path(x, got)
     if name == "warp_rotate_center_exact":
-        lib = grid_sample_call(x, R, padding)
-        diff = (lib().permute(0, 2, 3, 1).float() - got.float()).abs()
-        out["library_ms"] = cuda_ms(lib, reps=10)
+        fns["library_ms"] = grid_sample_call(x, R, padding)
+        diff = (fns["library_ms"]().permute(0, 2, 3, 1).float() - got.float()).abs()
         out["library"] = "F.grid_sample, NCHW, bilinear, align_corners=True"
         out["library_max_abs_err"] = torch.nan_to_num(diff[1:]).max().item()
-    del x, got, ref
+        out["path"] = bw._path(x, got)
+    out.update(windowed_ms(fns, reps=10))
+    out.setdefault("library_ms", None)
+    del x, got, ref, fns
     return out
 
 
@@ -795,12 +921,12 @@ def knn_measure(kn, D, gen, bwidth, rate):
     yard_same = (yard() == got).float().mean().item()
     flops = 2 * PC_B * PC_N * PC_N * D
     nbytes = x.numel() * x.element_size() + got.numel() * got.element_size()
-    out = {"ms": cuda_ms(run, reps=20), "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+    out = {**windowed_ms({"ms": run, "yardstick_ms": yard}, reps=10),
+           "plain_ms": cuda_ms(plain, reps=3, warmup=1),
            "max_abs_err": err, "tie_picks": n_bad, "max_rel_gap": rel,
            "bound_ms": max(flops / rate, nbytes / bwidth) * 1e3,
            "bound_by": "operations" if flops / rate >= nbytes / bwidth else "bytes",
            "flops": flops, "bytes": nbytes, "shape": [PC_B, PC_N, D], "k": PC_K,
-           "yardstick_ms": cuda_ms(yard, reps=10),
            "yardstick": "torch.baddbmm + torch.topk",
            "yardstick_same_index_share": yard_same}
     del x, got, ref
@@ -1064,8 +1190,8 @@ def orbit_measure(orb, b, size, c, n, refl, sign, dtype, gen, bwidth):
     assert torch.equal(orbit_bits(lib().view_as(got)), orbit_bits(got)), (
         "K4 gather yardstick differs")
     nbytes = (1 + got.shape[0]) * x.numel() * x.element_size()
-    out = {"ms": cuda_ms(run, reps=20), "plain_ms": cuda_ms(plain, reps=5, warmup=1),
-           "library_ms": cuda_ms(lib, reps=10),
+    out = {**windowed_ms({"ms": run, "library_ms": lib}, reps=10),
+           "plain_ms": cuda_ms(plain, reps=5, warmup=1),
            "library": "torch.gather, precomputed int64 index",
            "max_abs_err": (got.float() - ref.float()).abs().max().item(),
            "bound_ms": nbytes / bwidth * 1e3, "bytes": nbytes,
@@ -1782,6 +1908,9 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     check_kernels(sw, gen)
     check_continuous_kernels(sr, bw, gen)
+    gen_wide = torch.Generator().manual_seed(14)
+    k5_k7_checks = check_k5_k7_wide(sr, bw, gen_wide)
+    guard_checks = grad_guard_phase(orb, sr, bw, torch.Generator().manual_seed(15))
     gen_knn = torch.Generator().manual_seed(1)  # leaves `gen`'s images as they were
     knn_checks = check_knn_kernel(kn, gen_knn)
     gen_orbit = torch.Generator().manual_seed(4)
@@ -1989,6 +2118,8 @@ def main() -> int:
         checks["select_gradients"] = select_gradient_phase(
             sw, torch.Generator().manual_seed(13))
         checks["k3"] = k3_checks
+        checks["k5_k7_wide"] = k5_k7_checks
+        checks["grad_guard"] = guard_checks
 
         kernels = []
         gen_dev = torch.Generator(device=DEVICE).manual_seed(3)

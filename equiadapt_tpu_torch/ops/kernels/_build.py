@@ -100,6 +100,31 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def whole_words(*tensors) -> bool:
+    """True when a pixel (the last dimension) of each tensor is a whole
+    number of 16-byte words and each tensor starts on a 16-byte boundary:
+    the condition of the kernels' 16-byte-word paths."""
+    return all((t.shape[-1] * t.element_size()) % 16 == 0
+               and t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def refuse_grad(tensors: Sequence, kernels: str, differentiable: str) -> None:
+    """Raise when autograd would need a gradient of a kernel that has no
+    backward: grad mode is on and a floating tensor among `tensors` requires
+    grad. The CUDA result would carry no `grad_fn`, while the CPU's plain
+    version is differentiable, so the two devices would give different
+    gradients without a word. `differentiable` names the route that will
+    give the gradient on the card."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t.is_floating_point() and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernels}: no backward on the card, and an input requires grad "
+            f"under grad mode; {differentiable}. Call under torch.no_grad() (or "
+            f"torch.inference_mode()), detach the inputs, or use CPU tensors, "
+            f"whose plain version is differentiable")
+
+
 def route(tensors: Sequence, kernels: str) -> str:
     """"cpu" (plain version) or "cuda" (kernel) for a wrapper's tensors;
     anything else (another device, or devices mixed) raises."""

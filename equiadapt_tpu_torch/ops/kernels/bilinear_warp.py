@@ -9,7 +9,14 @@ roto-reflection-factored) matrices R (B, 2, 2).
 `csrc/bilinear_warp.cu` for CUDA tensors, takes the plain PyTorch version
 beside it (`_warp_center_affine` -> `ops.warp.bilinear_sample`) for CPU
 tensors, and raises for anything else. There is no tiling gate: the kernel
-takes any image shape. `launches` counts its launches by dtype.
+takes any image shape. It moves whole 16-byte words of channels where C and
+the pointers allow (`_path`), single elements otherwise. `launches` counts
+its launches by dtype.
+
+The kernel has no backward: under grad mode, an input that requires grad
+raises on the card (`_build.refuse_grad`) instead of returning a result
+without a `grad_fn`. Training warps through `_warp_center_affine`, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -26,7 +33,10 @@ Tensor = torch.Tensor
 
 __all__ = ["warp_rotate_center_exact", "launches", "reset_launches"]
 
-_KERNELS = "the exact-warp kernel"
+_KERNELS = "the exact-warp kernel (K7)"
+_DIFFERENTIABLE = (
+    "the differentiable exact warp (`_warp_center_affine`, autograd through "
+    "the sample coordinates) comes with continuous training, ROADMAP.md item 11")
 
 # kernel launches by dtype, e.g. launches["warp_rotate_center_exact/float32"]
 launches: Dict[str, int] = {}
@@ -41,7 +51,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.eqt_warp_rotate_center_exact
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     return lib
 
@@ -88,7 +98,15 @@ def warp_rotate_center_exact(x: Tensor, R: Tensor,
         raise ValueError(f"padding_mode must be border or zeros, got {padding_mode}")
     if _build.route([x, R], _KERNELS) == "cpu":
         return _warp_center_affine(x, R, padding_mode)
+    _build.refuse_grad([x, R], _KERNELS, _DIFFERENTIABLE)
     return _launch(x, R, padding_mode)
+
+
+def _path(x: Tensor, out: Tensor) -> str:
+    """The kernel's launch path: "word" (16-byte words of channels) when a
+    pixel is whole words and both pointers are 16-byte aligned, "element"
+    otherwise."""
+    return "word" if _build.whole_words(x, out) else "element"
 
 
 def _launch(x: Tensor, R: Tensor, padding_mode: str) -> Tensor:
@@ -97,13 +115,15 @@ def _launch(x: Tensor, R: Tensor, padding_mode: str) -> Tensor:
         raise TypeError(f"{_KERNELS} takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{_KERNELS} needs NHWC-contiguous input")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"grid limit: B, H <= 65535, got {tuple(x.shape)}")
-    tab = _inverse_coefficients(R, torch.float32).contiguous()
+    if B > 65535 or H * W * C >= 2**31:
+        raise ValueError(f"grid limit: B <= 65535 and H * W * C < 2^31, got {tuple(x.shape)}")
+    Rf = R.to(torch.float32).contiguous()
+    tab = torch.empty((B, 4), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     err = _lib().eqt_warp_rotate_center_exact(
-        _build.DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), tab.data_ptr(),
-        int(padding_mode == "zeros"), B, H, W, C,
+        _build.DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), Rf.data_ptr(),
+        tab.data_ptr(), int(padding_mode == "zeros"), B, H, W, C,
+        int(_path(x, out) == "word"),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

@@ -25,6 +25,10 @@ square image, per-element static warps (`ops/warp._residual_rotate`) and
 
 `launches` counts kernel launches by dtype, e.g.
 `launches["rot90_flip_orbit/float32"]`.
+
+The kernel has no backward: under grad mode, an input that requires grad
+raises on the card (`_build.refuse_grad`) instead of returning a result
+without a `grad_fn`.
 """
 
 from __future__ import annotations
@@ -106,6 +110,9 @@ def rot90_flip_orbit(x: Tensor, num_rotations: int = 4,
     ks, flips = _elements(num_rotations, reflections, sign)
     if _build.route([x], _KERNELS) == "cpu":
         return rot90_flip_orbit_plain(x, num_rotations, reflections, sign)
+    _build.refuse_grad([x], "the orbit kernel (K4)",
+                       "a differentiable orbit comes with the optimized "
+                       "canonicalizer's training, ROADMAP.md item 10")
     return _launch(x.contiguous(), ks, flips)
 
 

@@ -15,8 +15,15 @@ alpha = -tan(r/2), beta = sin(r):
 
 Both wrappers launch the hand-written CUDA kernels of `csrc/shear_rotate.cu`
 for CUDA tensors, take the plain PyTorch versions beside them for CPU
-tensors, and raise for anything else. `launches` counts wrapper calls that
-launched a kernel, by dtype (K6's three passes are one call).
+tensors, and raise for anything else. K5 moves whole 16-byte words of a
+pixel where C and the pointers allow, and stages 32 x 32 tiles through
+shared memory otherwise (`_select_path`). `launches` counts wrapper calls
+that launched a kernel, by dtype (K6's three passes are one call).
+
+Neither kernel has a backward: under grad mode, an input that requires grad
+raises on the card (`_build.refuse_grad`) instead of returning a result
+without a `grad_fn`. The differentiable fast warp is the JAX package's
+`warp_center_rotation_fast_diff`, still to be ported.
 
 The TPU kernel's roll-depth bound (`_max_shift`) has no counterpart: the
 CUDA kernel addresses each tap directly and clamps it.
@@ -25,6 +32,7 @@ CUDA kernel addresses each tap directly and clamps it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -46,6 +54,9 @@ __all__ = [
 
 _PADDING = ("border", "zeros")
 _KERNELS = "shear-rotate kernels"
+_DIFFERENTIABLE = (
+    "the differentiable fast warp (`warp_center_rotation_fast_diff`) comes "
+    "with continuous training, ROADMAP.md item 11")
 
 # kernel launches per wrapper and dtype, e.g. launches["shear_rotate_residual/bfloat16"]
 launches: Dict[str, int] = {}
@@ -65,7 +76,7 @@ def _lib() -> ctypes.CDLL:
     if lib.eqt_rot90_centered_select.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.eqt_rot90_centered_select.argtypes = [
-            ci, vp, vp, vp, ctypes.POINTER(ci), ci, ci, ci, ci, vp]
+            ci, vp, vp, vp, ctypes.POINTER(ci), ci, ci, ci, ci, ci, vp]
         lib.eqt_rot90_centered_select.restype = ci
         lib.eqt_shear_rotate_residual.argtypes = [
             ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, ci, vp]
@@ -90,6 +101,7 @@ def _check_launch(x: Tensor) -> None:
         raise ValueError(f"grid limit: B, H <= 65535 and W * C < 2^31, got {tuple(x.shape)}")
 
 
+@functools.lru_cache(maxsize=64)
 def _centered_shifts(H: int, W: int, cx: int, cy: int) -> Tuple[Tuple[int, int], ...]:
     """(sy, sx) per k: rot90^k about the lattice midpoint m = ((W-1)/2,
     (H-1)/2) followed by out(p) = z(p + s) is the rotation about c, with
@@ -151,7 +163,15 @@ def rot90_centered_select(x: Tensor, k_idx: Tensor, cx: int, cy: int,
         raise ValueError(f"k_idx of shape ({B},), got {tuple(k_idx.shape)}")
     if _build.route([x, k_idx], _KERNELS) == "cpu":
         return rot90_centered_select_plain(x, k_idx, cx, cy, padding_mode)
+    _build.refuse_grad([x], "the quarter-turn kernel (K5)", _DIFFERENTIABLE)
     return _launch_select(x, k_idx, cx, cy, padding_mode)
+
+
+def _select_path(x: Tensor, out: Tensor) -> str:
+    """K5's launch path: "word" (16-byte words of a pixel) when a pixel is
+    whole words and both pointers are 16-byte aligned, "tile" (32 x 32 tiles
+    through shared memory) otherwise."""
+    return "word" if _build.whole_words(x, out) else "tile"
 
 
 def _launch_select(x: Tensor, k_idx: Tensor, cx: int, cy: int,
@@ -164,7 +184,7 @@ def _launch_select(x: Tensor, k_idx: Tensor, cx: int, cy: int,
     out = torch.empty_like(x)
     err = _lib().eqt_rot90_centered_select(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), k.data_ptr(), table,
-        int(padding_mode == "zeros"), B, H, C,
+        int(padding_mode == "zeros"), B, H, C, int(_select_path(x, out) == "word"),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
@@ -236,6 +256,7 @@ def shear_rotate_residual(z: Tensor, r: Tensor, cx: float, cy: float,
         raise ValueError(f"r of shape ({B},), got {tuple(r.shape)}")
     if _build.route([z, r], _KERNELS) == "cpu":
         return shear_rotate_residual_plain(z, r, cx, cy, padding_mode)
+    _build.refuse_grad([z, r], "the three-shear kernel (K6)", _DIFFERENTIABLE)
     return _launch_shear(z, r, cx, cy, padding_mode)
 
 
@@ -271,6 +292,8 @@ def warp_rotate_center_fast(x: Tensor, R: Tensor,
     then k mod 4.
     """
     B, H, W, C = x.shape
+    if _build.route([x, R], _KERNELS) == "cuda":
+        _build.refuse_grad([x, R], "the fast warp's kernels (K5, K6)", _DIFFERENTIABLE)
     cx, cy = W // 2, H // 2
     phi = -torch.atan2(R[:, 1, 0], R[:, 0, 0]).to(torch.float32)
     # divide by a tensor, not a Python scalar: CUDA divides by a host scalar
