@@ -14,8 +14,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      indices, shifts and reflections; and the full main-path shapes);
    - K3 (the channels-last select) bit for bit as integers against its
      plain version and against K1 on the same data in NCHW memory: N in
-     {1, 31, 32, 33, 224}, C in {1, 3, 4, 16}, 1-4 sources, every k, fp32
-     and bf16, a NaN payload and a -0.0 in every source;
+     {1, 31, 32, 33, 97, 224}, C in {1, 2, 3, 4, 5, 16}, 1-4 sources,
+     every k, fp32 and bf16, a NaN payload and a -0.0 in every source, on
+     aligned sources (word and tile paths) and on misaligned views (tile);
    - K5 (centered quarter turn) with `torch.equal`, K6 (three-shear
      residual) and K7 (exact bilinear warp) within 2e-6 * max|x| (fp32)
      and one bf16 ulp (bf16), on ragged small cases and the main-path
@@ -59,12 +60,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    must give the quarter-turned matrix rep within 1e-4 for at least 99% of
    the batch;
 6. K8 (fused kNN) against its plain version: fp32 and bf16, N in
-   {6, 100, 1000, 1024}, D in {3, 4, 64, 128}, k in {1, 4, 20}, plus
-   clouds with duplicated points, quantized-grid clouds and a cloud with
-   one NaN point (its indices must stay in [0, N), the other clouds must
-   not change). At D <= 4 the indices must be `torch.equal`; at D > 4 a
-   differing pick is admitted only where the two float64 squared
-   distances lie within 3e-7 (relative), an fp32-level tie;
+   {1, 6, 31, 100, 1000, 1024, 4096} (both block widths), D in {3, 4, 64,
+   128}, k in {1, 4, 20, 128} (k <= N; k = 128 takes the rounds
+   route), plus clouds with duplicated points, quantized-grid clouds,
+   zero-padded clouds with -0.0 coordinates and a cloud with one NaN point
+   (its indices must stay in [0, N), the other clouds must not change). At
+   D <= 4 the indices must be `torch.equal`; at D > 4 a differing pick is
+   admitted only where the two float64 squared distances lie within
+   2 sqrt(D) fp32 roundings of |q|^2 + |p|^2, an fp32-level tie
+   (`knn_agree`);
 7. point-cloud main path at full width (the repo's ModelNet40
    configuration): batch 64, 1024 points, `VNSmall(n_knn=20, mean
    pooling, fused kNN)` canonicalize, DGCNN (k 20, emb 1024, 40 classes),
@@ -144,6 +148,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -237,6 +242,31 @@ def bandwidth_for(name: str) -> float:
 
 def sync():
     torch.cuda.synchronize()
+
+
+def ptxas_report(text: str):
+    """Registers, spill bytes and static shared memory of each kernel from
+    nvcc's `-Xptxas -v` output: [{"kernel", "registers", "spill_stores",
+    "spill_loads", "smem"}] (dynamic shared memory is not in this report)."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "spill_stores": 0,
+                   "spill_loads": 0, "smem": 0}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return rows
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -834,57 +864,79 @@ def check_continuous_equivariance(canon, x, info):
 
 def knn_agree(points, got, ref):
     """K8's picks against the plain version's: `torch.equal` at D <= 4; at
-    D > 4 each differing pick must tie the plain one within 3e-7 of the
-    float64 squared distances (relative). Every index must lie in [0, N).
-    Returns (differing picks, max |float64 distance difference|, the same
-    relative to the larger distance)."""
+    D > 4 each differing pick must tie the plain one at fp32 level: the
+    float64 squared distances of the two picked points lie within
+    2 sqrt(D) fp32 roundings (2^-24) of the terms that cancel in d, |q|^2 +
+    |p|^2. Each fp32 computation of d (the kernel's fmaf chain, the plain
+    version's matrix product) rounds a sum of D products and the two norms,
+    about sqrt(D) roundings of that size; the two may differ by twice that.
+    Every index must lie in [0, N). Returns (differing picks, max |float64
+    distance difference|, the same relative to the larger distance, the
+    largest difference in units of 2^-24 (|q|^2 + |p|^2))."""
     N, D = points.shape[1], points.shape[2]
     assert int(got.min()) >= 0 and int(got.max()) < N, "index out of range"
     if D <= 4:
         assert torch.equal(got, ref), "K8 differs from its plain version"
-        return 0, 0.0, 0.0
+        return 0, 0.0, 0.0, 0.0
     bad = got != ref
     n_bad = int(bad.sum())
     if n_bad == 0:
-        return 0, 0.0, 0.0
+        return 0, 0.0, 0.0, 0.0
     b, q, s = bad.nonzero(as_tuple=True)
     p = points.double()
-    d_ref = ((p[b, q] - p[b, ref[b, q, s].long()]) ** 2).sum(-1)
-    d_got = ((p[b, q] - p[b, got[b, q, s].long()]) ** 2).sum(-1)
+    sq = (p * p).sum(-1)
+    i_ref, i_got = ref[b, q, s].long(), got[b, q, s].long()
+    d_ref = ((p[b, q] - p[b, i_ref]) ** 2).sum(-1)
+    d_got = ((p[b, q] - p[b, i_got]) ** 2).sum(-1)
     gap = (d_ref - d_got).abs()
     rel = gap / torch.clamp(torch.maximum(d_ref, d_got), min=1e-30)
-    assert bool((rel <= 3e-7).all()), ("K8 pick beyond an fp32 tie",
-                                       rel.max().item())
-    return n_bad, gap.max().item(), rel.max().item()
+    ulps = gap / (2.0 ** -24 * (sq[b, q] + torch.maximum(sq[b, i_ref], sq[b, i_got])))
+    assert bool((ulps <= 2 * math.sqrt(D)).all()), (
+        "K8 pick beyond an fp32 tie", ulps.max().item(), 2 * math.sqrt(D))
+    return n_bad, gap.max().item(), rel.max().item(), ulps.max().item()
+
+
+def signed_zero_cloud(x):
+    """x with zero-padding rows: +0.0 points and points of -0.0 coordinates
+    interleaved, whose distances to a zero query are +0.0 and -0.0 and must
+    tie by index."""
+    x = x.clone()
+    x[:, 0:24:2] = 0.0
+    x[:, 1:24:2] = -0.0
+    return x
 
 
 def check_knn_kernel(kn, gen):
-    """K8 against its plain version on ragged cases, ties and a NaN point;
-    launches here are not counted as the main path's."""
+    """K8 against its plain version on ragged cases, both block widths (N up
+    to 1024, and above), both selection routes (k <= 32 and k = 128), ties,
+    signed zeros and a NaN point; launches here are not counted as the main
+    path's."""
     cases, ties, worst = 0, 0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for N in (6, 100, 1000, 1024):
+        for N in (1, 6, 31, 100, 1000, 1024, 4096):
             for D in (3, 4, 64, 128):
                 x = torch.randn(3, N, D, generator=gen).to(DEVICE, dtype)
-                for k in (1, 4, 20):
+                for k in (1, 4, 20, 128):
                     if k > N:
                         continue
                     got, ref = kn.knn_indices(x, k), kn.knn_indices_plain(x, k)
                     sync()
-                    n_bad, _, rel = knn_agree(x, got, ref)
-                    ties, worst = ties + n_bad, max(worst, rel)
+                    n_bad, _, _, ulps = knn_agree(x, got, ref)
+                    ties, worst = ties + n_bad, max(worst, ulps)
                     cases += 1
         for D in (3, 64):
             x = torch.randn(3, 1000, D, generator=gen)
             dup = x.clone()
             dup[:, 500:] = x[:, :500]  # every point twice: exact ties
             grid = torch.round(x * 2.0) / 4.0  # a 0.25 grid: many ties
-            for cloud in (dup, grid):
+            for cloud in (dup, grid, signed_zero_cloud(x)):
                 cloud = cloud.to(DEVICE, dtype)
-                got = kn.knn_indices(cloud, 20)
-                n_bad, _, rel = knn_agree(cloud, got, kn.knn_indices_plain(cloud, 20))
-                ties, worst = ties + n_bad, max(worst, rel)
-                cases += 1
+                for k in (20, 128):
+                    got = kn.knn_indices(cloud, k)
+                    n_bad, _, _, ulps = knn_agree(cloud, got,
+                                                  kn.knn_indices_plain(cloud, k))
+                    ties, worst = ties + n_bad, max(worst, ulps)
+                    cases += 1
             nan = x.to(DEVICE, dtype)
             clean = kn.knn_indices(nan, 20)
             nan[1, 17] = float("nan")
@@ -892,11 +944,13 @@ def check_knn_kernel(kn, gen):
             sync()
             assert int(got.min()) >= 0 and int(got.max()) < 1000, "NaN cloud"
             assert torch.equal(got[[0, 2]], clean[[0, 2]]), "NaN leaked"
+            if D <= 4:
+                assert torch.equal(got, kn.knn_indices_plain(nan, 20)), "NaN cloud"
             cases += 1
     log(f"K8 checks: {cases} cases against the plain version; "
         f"{ties} picks at D > 4 differ, each an fp32-level tie (largest "
-        f"relative gap {worst:.3g})")
-    return {"cases": cases, "tie_picks": ties, "max_rel_gap": worst}
+        f"gap {worst:.3g} roundings of |q|^2 + |p|^2)")
+    return {"cases": cases, "tie_picks": ties, "max_gap_roundings": worst}
 
 
 def knn_yardstick(x, k):
@@ -916,7 +970,7 @@ def knn_measure(kn, D, gen, bwidth, rate):
     plain = lambda: kn.knn_indices_plain(x, PC_K)
     got, ref = run(), plain()
     sync()
-    n_bad, err, rel = knn_agree(x, got, ref)
+    n_bad, err, rel, ulps = knn_agree(x, got, ref)
     yard = lambda: knn_yardstick(x, PC_K)
     yard_same = (yard() == got).float().mean().item()
     flops = 2 * PC_B * PC_N * PC_N * D
@@ -924,6 +978,7 @@ def knn_measure(kn, D, gen, bwidth, rate):
     out = {**windowed_ms({"ms": run, "yardstick_ms": yard}, reps=10),
            "plain_ms": cuda_ms(plain, reps=3, warmup=1),
            "max_abs_err": err, "tie_picks": n_bad, "max_rel_gap": rel,
+           "max_gap_roundings": ulps,
            "bound_ms": max(flops / rate, nbytes / bwidth) * 1e3,
            "bound_by": "operations" if flops / rate >= nbytes / bwidth else "bytes",
            "flops": flops, "bytes": nbytes, "shape": [PC_B, PC_N, D], "k": PC_K,
@@ -1480,33 +1535,47 @@ def with_payloads(x):
 
 def check_k3_kernel(sw, gen):
     """K3 against its plain version and against K1 on the same data in NCHW
-    memory, as integers: N in {1, 31, 32, 33, 224}, C in {1, 3, 4, 16},
-    1 to 4 sources, every k, fp32 and bf16, a NaN payload and a -0.0 in
-    every source. Launches here are not counted as the main paths'."""
-    cases = 0
+    memory, as integers: N in {1, 31, 32, 33, 97, 224}, C in {1, 2, 3, 4,
+    5, 16}, 1 to 4 sources, every k (some negative), fp32 and bf16, a NaN
+    payload and a -0.0 in every source; each case also on 16-byte-misaligned
+    views of the same sources, which must take the tile path. Launches here
+    are not counted as the main paths'."""
+    cases, paths = 0, set()
     for dtype in (torch.float32, torch.bfloat16):
-        for N in (1, 31, 32, 33, 224):
+        for N in (1, 31, 32, 33, 97, 224):
             b = 4 if N == 224 else 8
-            for C in (1, 3, 4, 16):
+            for C in (1, 2, 3, 4, 5, 16):
                 for S in (1, 2, 3, 4):
                     srcs = [with_payloads(torch.randn(b, N, N, C, generator=gen)
                                           .to(dtype)).to(DEVICE) for _ in range(S)]
                     src = torch.randint(0, S, (b,), generator=gen).int().to(DEVICE)
                     k = (torch.arange(b) % 4 + 4 * torch.randint(-2, 2, (b,),
                          generator=gen)).int().to(DEVICE)  # every k, some negative
-                    got = sw.select_planes_nhwc(srcs, src, k)
                     ref = sw.select_planes_nhwc_plain(srcs, src, k)
                     k1 = sw.select_planes([s.permute(0, 3, 1, 2).contiguous()
                                            for s in srcs], src, k)
-                    sync()
-                    assert got.is_contiguous()
-                    assert torch.equal(orbit_bits(got), orbit_bits(ref)), (
-                        "K3", dtype, N, C, S)
-                    assert torch.equal(orbit_bits(got), orbit_bits(
-                        k1.permute(0, 2, 3, 1).contiguous())), ("K3 vs K1", dtype, N, C, S)
+                    k1 = k1.permute(0, 2, 3, 1).contiguous()
+                    views = []
+                    for s_ in srcs:
+                        v = torch.empty(s_.numel() + 1, dtype=dtype,
+                                        device=DEVICE)[1:].view_as(s_)
+                        views.append(v.copy_(s_))
+                    for inp in (srcs, views):
+                        got = sw.select_planes_nhwc(inp, src, k)
+                        sync()
+                        path = sw._nhwc_path(inp, got)
+                        assert inp is srcs or path == "tile", (N, C, path)
+                        paths.add(path)
+                        assert got.is_contiguous()
+                        assert torch.equal(orbit_bits(got), orbit_bits(ref)), (
+                            "K3", dtype, N, C, S, path)
+                        assert torch.equal(orbit_bits(got), orbit_bits(k1)), (
+                            "K3 vs K1", dtype, N, C, S, path)
                     cases += 1
-    log(f"K3 checks: {cases} cases bit-equal to the plain version and to K1")
-    return {"cases": cases}
+    assert paths == {"word", "tile"}, paths
+    log(f"K3 checks: {cases} cases, each on aligned and misaligned sources, "
+        f"bit-equal to the plain version and to K1; paths {sorted(paths)}")
+    return {"cases": cases, "paths": sorted(paths)}
 
 
 def check_serving_against_cpu(canon, resnet, x, y, x_c, info, logits, y_inv, m=8):
@@ -1902,8 +1971,14 @@ def main() -> int:
     _build.build_all()
     results["build_s"] = time.perf_counter() - t0
     log(f"build: {results['build_s']:.1f} s")
+    results["ptxas"] = {}
     for src, text in _build.build_logs.items():
-        log(f"nvcc {src}.cu:\n{text.strip()}")
+        report = ptxas_report(text)
+        results["ptxas"][src] = report
+        for row in report:
+            log(f"ptxas {src}.cu {row['kernel']}: {row['registers']} registers, "
+                f"spills {row['spill_stores']} / {row['spill_loads']} bytes, "
+                f"{row['smem']} bytes static smem")
 
     gen = torch.Generator().manual_seed(0)
     check_kernels(sw, gen)

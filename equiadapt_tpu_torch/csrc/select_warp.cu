@@ -33,42 +33,38 @@
 // Indices are read by the block itself and clamped into range, so a wrong
 // index cannot form an address outside the sources.
 //
-// K3 (select_nhwc_kernel) is K1's memory-format case for channels-last
-// sources. It replaces the Pallas TPU kernel _pallas_selectn_ilv
+// K3 is K1's memory-format case for channels-last sources. It replaces the
+// Pallas TPU kernel _pallas_selectn_ilv
 // (equiadapt_tpu/ops/pallas/select_warp.py:503-557), which works on
 // channel-interleaved (B, N, N*C) rows so that no transpose copy brackets
 // the select:
 //   out[b, i, j, c] = rot90^{k[b]}(S_{src[b]}[b])[i, j, c],
 // S_s and out NHWC-contiguous (B, N, N, C), any C >= 1. Its bound is the
-// same as K1's (one read of the selected image, one write of the output).
-// One block per (sample, 32 x 32 output tile). For k = 0, 2 every output
-// row of the tile is one contiguous run of 32 * C values whose source is
-// one contiguous run as well (pixels reversed for k = 2, channels in
-// order), so threads walk it directly. For k = 1, 3 the tile's source is a
-// 32 x 32 pixel block whose rows are the output's columns: it is staged
-// through shared memory in chunks of up to kChunk channels (48 KB), read
-// along source rows and written along output rows, so that both global
-// accesses walk NHWC rows with the channel as the minor index. The chunk
-// rows are padded by one element against bank conflicts.
+// same as K1's: one read of the selected image, one write of the output,
+// 2 * B * N * N * C * sizeof(T) bytes (0.092 / 0.046 ms at (256, 224, 224,
+// 3) fp32 / bf16 on an H100 SXM). It is the centered quarter turn of K5
+// with no shift and no fill, so it runs K5's kernels (quarter_turn.cuh)
+// with the sample's source picked per block: at C <= 4 a 32 x 32 tile
+// through shared memory, one warp a row, C a template parameter, pixel
+// offsets formed once a pixel and handed out by shuffles; 16-byte words
+// where a pixel is whole words and every pointer is aligned; 16-byte chunks
+// of a pixel otherwise. Its first design moved one 2- or 4-byte element a
+// thread with two runtime divisions (by the row run and by C) each, and
+// took the same time in bf16 as in fp32: the index arithmetic, not the
+// bytes, bounded it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "quarter_turn.cuh"
+
 namespace {
 
 constexpr int kTile = 32;
 constexpr int kRows = 8;
 constexpr int kMaxSources = 4;
-constexpr int kNhwcThreads = 256;
-constexpr int kNhwcSmemBytes = 48 * 1024;
-
-// channels of one staged chunk: kTile rows of (kTile * chunk + 1) values
-template <typename T>
-__host__ __device__ constexpr int nhwc_chunk() {
-  return (kNhwcSmemBytes / static_cast<int>(sizeof(T)) / kTile - 1) / kTile;
-}
 
 template <typename T>
 struct Sources {
@@ -166,95 +162,6 @@ int launch(const void* const* src, int num_sources, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kNhwcThreads)
-select_nhwc_kernel(Sources<T> sources, T* __restrict__ out,
-                   const int* __restrict__ src_idx,
-                   const int* __restrict__ k_idx, int num_sources, int N,
-                   int C, int tiles) {
-  constexpr int kChunk = nhwc_chunk<T>();
-  constexpr int kStride = kTile * kChunk + 1;  // one staged source row
-  __shared__ T tile[kTile * kStride];
-
-  const int b = blockIdx.y;
-  const int i0 = (blockIdx.x / tiles) * kTile;  // output row origin
-  const int j0 = (blockIdx.x % tiles) * kTile;  // output column origin
-  const int rows = min(kTile, N - i0);
-  const int cols = min(kTile, N - j0);
-  const int s = min(max(src_idx[b], 0), num_sources - 1);
-  const int k = k_idx[b] & 3;  // floor mod 4
-  const size_t image = static_cast<size_t>(N) * N * C;
-  const T* __restrict__ in = sources.ptr[s] + b * image;
-  T* __restrict__ o = out + b * image;
-  const int tid = threadIdx.x;
-
-  if ((k & 1) == 0) {
-    // k = 0: out[i, j] = S[i, j];  k = 2: out[i, j] = S[N-1-i, N-1-j]
-    const int run = cols * C;  // one output row of the tile
-    const int total = rows * run;
-    for (int e = tid; e < total; e += kNhwcThreads) {
-      const int r = e / run;
-      const int rem = e - r * run;
-      const int jj = rem / C;
-      const int c = rem - jj * C;
-      const int i = i0 + r;
-      const int j = j0 + jj;
-      const int si = k == 0 ? i : N - 1 - i;
-      const int sj = k == 0 ? j : N - 1 - j;
-      o[(static_cast<size_t>(i) * N + j) * C + c] =
-          in[(static_cast<size_t>(si) * N + sj) * C + c];
-    }
-    return;  // k is uniform over the block: no thread reaches the barrier
-  }
-
-  // k = 1: out[i, j] = S[j, N-1-i];  k = 3: out[i, j] = S[N-1-j, i].
-  // Staged row jj holds source row (k == 1 ? j0 + jj : N-1-j0-jj); its
-  // pixel q is source column lo + q, q < rows.
-  const int lo = k == 1 ? N - i0 - rows : i0;
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
-    const int cc = min(kChunk, C - c0);
-    const int run = rows * cc;
-    const int total = cols * run;
-    for (int e = tid; e < total; e += kNhwcThreads) {
-      const int jj = e / run;
-      const int rem = e - jj * run;
-      const int q = rem / cc;
-      const int c = rem - q * cc;
-      const int sr = k == 1 ? j0 + jj : N - 1 - j0 - jj;
-      tile[jj * kStride + q * cc + c] =
-          in[(static_cast<size_t>(sr) * N + lo + q) * C + c0 + c];
-    }
-    __syncthreads();
-    const int orun = cols * cc;
-    const int ototal = rows * orun;
-    for (int e = tid; e < ototal; e += kNhwcThreads) {
-      const int r = e / orun;
-      const int rem = e - r * orun;
-      const int jj = rem / cc;
-      const int c = rem - jj * cc;
-      const int q = k == 1 ? rows - 1 - r : r;
-      o[(static_cast<size_t>(i0 + r) * N + j0 + jj) * C + c0 + c] =
-          tile[jj * kStride + q * cc + c];
-    }
-    __syncthreads();  // the next chunk overwrites the tile
-  }
-}
-
-template <typename T>
-int launch_nhwc(const void* const* src, int num_sources, void* out,
-                const int* src_idx, const int* k_idx, int B, int N, int C,
-                cudaStream_t stream) {
-  Sources<T> sources;
-  for (int s = 0; s < kMaxSources; ++s) {
-    sources.ptr[s] = static_cast<const T*>(src[s < num_sources ? s : 0]);
-  }
-  const int tiles = (N + kTile - 1) / kTile;
-  const dim3 grid(tiles * tiles, B);
-  select_nhwc_kernel<T><<<grid, kNhwcThreads, 0, stream>>>(
-      sources, static_cast<T*>(out), src_idx, k_idx, num_sources, N, C, tiles);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. shift and refl may be null (K1).
@@ -282,25 +189,37 @@ extern "C" int eqt_select_warp(int dtype, const void* s0, const void* s1,
 }
 
 // K3: NHWC-contiguous (B, N, N, C) sources and output. dtype as above.
-// Returns the cudaError_t of the launch (0 on success).
+// path: 1 = word (C * sizeof(T) a multiple of 16, every source and out
+// 16-byte aligned), 0 = tile. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int eqt_select_warp_nhwc(int dtype, const void* s0, const void* s1,
                                     const void* s2, const void* s3,
                                     int num_sources, void* out,
                                     const int* src_idx, const int* k_idx,
-                                    int B, int N, int C, void* stream) {
-  if (num_sources < 1 || num_sources > kMaxSources || B < 1 || N < 1 ||
-      C < 1) {
+                                    int B, int N, int C, int path,
+                                    void* stream) {
+  if (num_sources < 1 || num_sources > kMaxSources ||
+      !quarter_turn_shape_ok(B, N, C) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* src[kMaxSources] = {s0, s1, s2, s3};
   const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_nhwc<float>(src, num_sources, out, src_idx, k_idx, B, N, C,
-                              st);
+  const Shifts none = {{0, 0, 0, 0}, {0, 0, 0, 0}};  // a plain quarter turn
+  if (path == 0) {
+    return dtype == 0
+        ? rot90_tile(images<unsigned int>(src, num_sources, src_idx), out,
+                     k_idx, none, 0, B, N, C, st)
+        : rot90_tile(images<unsigned short>(src, num_sources, src_idx), out,
+                     k_idx, none, 0, B, N, C, st);
   }
-  if (dtype == 1) {
-    return launch_nhwc<__nv_bfloat16>(src, num_sources, out, src_idx, k_idx,
-                                      B, N, C, st);
+  const int bytes = dtype == 0 ? 4 : 2;
+  bool aligned = reinterpret_cast<size_t>(out) % 16 == 0;
+  for (int s = 0; s < num_sources; ++s) {
+    aligned = aligned && reinterpret_cast<size_t>(src[s]) % 16 == 0;
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (path != 1 || (C * bytes) % 16 != 0 || !aligned) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return rot90_words(images<uint4>(src, num_sources, src_idx), out, k_idx,
+                     none, 0, B, N, C * bytes / 16, st);
 }

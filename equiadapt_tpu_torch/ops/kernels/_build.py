@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds), under
-`equiadapt_tpu_torch/_build/`. The library name carries a hash of the source,
-so an edited source is rebuilt and a stale library is never loaded. The build
+`equiadapt_tpu_torch/_build/`. The library name carries a hash of the source
+and of every header in `csrc/` (`*.cuh`, which the sources include), so an
+edited source or header is rebuilt and a stale library is never loaded. The build
 runs at first use, in the process that needs the kernel; `build_all` starts
 one nvcc per source at once, for a caller that wants every kernel ready.
 
@@ -58,9 +59,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library path of `csrc/<name>.cu`: its name hashes the source and
+    every `csrc/*.cuh` header, in name order."""
+    h = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> None:

@@ -20,6 +20,12 @@ kernel its own fp32 dot product, so their indices may differ only where
 two distances tie at fp32 level, as the JAX package states for its fused
 and exact modes.
 
+The kernel orders by a packed key: `order_key` maps each fp32 distance to
+an integer whose order is the rounds' pick order (every NaN above +inf,
+-0.0 tied with +0.0, ties to the smaller index), and `select_by_order_key`
+is the plain model of its selection, held against the rounds by the CPU
+tests.
+
 `launches` counts kernel launches by dtype and distance branch, e.g.
 `launches["knn_indices/float32/d<=4"]`.
 """
@@ -35,15 +41,17 @@ from equiadapt_tpu_torch.ops.kernels import _build
 
 Tensor = torch.Tensor
 
-__all__ = ["knn_indices", "knn_indices_plain", "launches", "reset_launches",
-           "MAX_N", "MAX_D", "MAX_K"]
+__all__ = ["knn_indices", "knn_indices_plain", "argmax_rounds", "order_key",
+           "select_by_order_key", "launches", "reset_launches", "MAX_N",
+           "MAX_D", "MAX_K"]
 
 _KERNELS = "the kNN kernel"
 
-# the kernel's limits: the row of N fp32 distances of each of a block's 8
-# query rows and a transposed (32, D) point tile share one block's shared
-# memory (170 KB at the limits); k rounds each scan the whole row, so a
-# larger k is a sort's work
+# the kernel's limits: at D > 4 and k <= 32 a block keeps 64 queries (D, 64)
+# and a key chunk in shared memory (about 100 KB at the limits); otherwise
+# a block's query rows of N order keys (up to 32 rows at N <= 1024, else 8)
+# share it with the queries (at most 193 KB); above k = 32 the selection
+# takes k rounds over each row, so a larger k is a sort's work
 MAX_N, MAX_D, MAX_K = 4096, 256, 128
 
 # kernel launches by dtype and branch, e.g. launches["knn_indices/bfloat16/d>4"]
@@ -84,16 +92,53 @@ def _neg_sq_dist(points: Tensor) -> Tensor:
     return 2 * inner - sq[:, :, None] - sq[:, None, :]
 
 
-def knn_indices_plain(points: Tensor, k: int) -> Tensor:
-    """Plain version of K8: the (B, N, N) distances, then k rounds of
-    `torch.argmax` with each pick set to -inf. (B, N, k) int32."""
-    d = _neg_sq_dist(points)
+def argmax_rounds(d: Tensor, k: int) -> Tensor:
+    """k rounds of `torch.argmax` over the last dimension of fp32 `d`, each
+    pick set to -inf (in place): (..., k) int32."""
     picks = []
     for _ in range(k):
         am = torch.argmax(d, dim=-1, keepdim=True)
         picks.append(am)
         d.scatter_(-1, am, float("-inf"))
     return torch.cat(picks, dim=-1).int()
+
+
+def knn_indices_plain(points: Tensor, k: int) -> Tensor:
+    """Plain version of K8: the (B, N, N) distances, then k rounds of
+    `torch.argmax` with each pick set to -inf. (B, N, k) int32."""
+    return argmax_rounds(_neg_sq_dist(points), k)
+
+
+_NEG_INF_KEY = 0x007FFFFF  # order_key(-inf)
+
+
+def order_key(d: Tensor) -> Tensor:
+    """The kernel's 32-bit order key of fp32 `d`, as int64 in [0, 2^32):
+    every NaN to 2^32 - 1 (above +inf), -0.0 to +0.0's key, then the
+    sign-magnitude bits to a monotone unsigned code."""
+    bits = d.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, torch.zeros_like(bits), bits)
+    u = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
+    return torch.where(torch.isnan(d), torch.full_like(u, 0xFFFFFFFF), u)
+
+
+def select_by_order_key(d: Tensor, k: int) -> Tensor:
+    """Plain model of the kernel's selection over the last dimension of
+    fp32 `d`: the k largest packed keys (order_key(d) << 32 | (2^32 - 1 -
+    index), kept in int64 as that minus 2^63), in descending order; entries
+    of -inf are never picked, and the slots they would fill take index 0,
+    as the rounds' picks do once every entry above -inf is spent. (..., k)
+    int32."""
+    u = order_key(d)
+    n = d.shape[-1]
+    index = torch.arange(n, dtype=torch.int64, device=d.device)
+    packed = ((u - 2**31) << 32) | (0xFFFFFFFF - index)
+    packed = torch.where(u > _NEG_INF_KEY, packed,
+                         torch.full_like(packed, torch.iinfo(torch.int64).min))
+    top = torch.sort(packed, dim=-1, descending=True).values[..., :k]
+    picks = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+    spent = top == torch.iinfo(torch.int64).min
+    return torch.where(spent, torch.zeros_like(picks), picks).int()
 
 
 def knn_indices(points: Tensor, k: int) -> Tensor:

@@ -96,7 +96,7 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ci
     fn = lib.eqt_select_warp_nhwc
     if fn.argtypes is None:
-        fn.argtypes = [ci, vp, vp, vp, vp, ci, vp, vp, vp, ci, ci, ci, vp]
+        fn.argtypes = [ci, vp, vp, vp, vp, ci, vp, vp, vp, ci, ci, ci, ci, vp]
         fn.restype = ci
     return lib
 
@@ -171,6 +171,14 @@ def select_planes_nhwc_plain(sources: Sequence[Tensor], src_idx: Tensor,
 _NHWC = "select_planes_nhwc"
 
 
+def _nhwc_path(sources: Sequence[Tensor], out: Tensor) -> str:
+    """K3's launch path, as K5's (`shear_rotate._select_path`): "word"
+    (16-byte words of a pixel) when a pixel is whole words and every source
+    and the output start on a 16-byte boundary, "tile" (32 x 32 tiles
+    through shared memory) otherwise."""
+    return "word" if _build.whole_words(*sources, out) else "tile"
+
+
 def _launch(name: str, sources, src_idx, k_idx, shift, refl, G, n) -> Tensor:
     s0 = sources[0]
     if s0.dtype not in _build.DTYPE_CODES:
@@ -185,6 +193,9 @@ def _launch(name: str, sources, src_idx, k_idx, shift, refl, G, n) -> Tensor:
     if B > 65535 or (name != _NHWC and C > 65535):
         raise ValueError(f"grid limit: B (and C for NCHW) must be <= 65535, "
                          f"got {tuple(s0.shape)}")
+    if name == _NHWC and N * N * C >= 2**31:
+        raise ValueError(f"{name} takes N * N * C < 2^31 a sample, got "
+                         f"{tuple(s0.shape)}")
     idx = [t.to(torch.int32).contiguous() if t is not None else None
            for t in (src_idx, k_idx, shift, refl)]
     out = torch.empty_like(s0)
@@ -195,7 +206,8 @@ def _launch(name: str, sources, src_idx, k_idx, shift, refl, G, n) -> Tensor:
     if name == _NHWC:
         err = _lib().eqt_select_warp_nhwc(
             code, *ptrs, len(sources), out.data_ptr(), idx[0].data_ptr(),
-            idx[1].data_ptr(), B, N, C, stream)
+            idx[1].data_ptr(), B, N, C, int(_nhwc_path(sources, out) == "word"),
+            stream)
     else:
         err = _lib().eqt_select_warp(
             code, *ptrs, len(sources), out.data_ptr(),

@@ -144,3 +144,112 @@ def test_kernel_limits_are_checked_before_launch(shape, k, error):
     dtype = torch.float64 if error is TypeError else torch.float32
     with pytest.raises(error):
         tknn._launch(torch.zeros(shape, dtype=dtype), k)
+
+
+def _signed_zero_cloud(N, D, seed):
+    """Gaussian points whose first rows are zero-padding: +0.0 points and
+    points of -0.0 coordinates, interleaved. A zero query then meets
+    distances of +0.0 (a +0.0 point) and -0.0 (a -0.0 point), which must tie
+    and go by index."""
+    x = _points(2, N, D, seed)
+    x[:, 0:12:2] = 0.0
+    x[:, 1:12:2] = -0.0
+    x[1, 20:24] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+def test_signed_zero_padding_matches_jax(D):
+    """Against the JAX fused kernel (interpret mode), whose rounds of argmax
+    tie -0.0 with +0.0 as the port does: equal indices. Off a TPU the JAX
+    exact mode takes `lax.top_k`, which ranks +0.0 above -0.0, so against it
+    each row holds the same indices and only the zero ties may be ordered
+    otherwise."""
+    x = _signed_zero_cloud(60, D, seed=20 + D)
+    assert np.signbit(x[0, 1]).all() and not np.signbit(x[0, 0]).any()
+    ours = tknn.knn_indices(torch.from_numpy(x), 16).numpy()
+    fused = np.asarray(j_knn(jnp.asarray(x), 16, mode="fused"))
+    np.testing.assert_array_equal(ours, fused)
+    exact = np.asarray(j_knn(jnp.asarray(x), 16, mode="exact"))
+    np.testing.assert_array_equal(np.sort(ours, -1), np.sort(exact, -1))
+    zero = (x == 0).all(-1)  # (B, N) zero points
+    rows = ~zero  # a nonzero query has no zero-distance tie but itself
+    np.testing.assert_array_equal(ours[rows], exact[rows])
+    # a zero query's first picks are the zero points in index order
+    assert list(ours[0, 3, :6].tolist()) == [0, 1, 2, 3, 4, 5]
+
+
+@pytest.mark.parametrize("D,N", [(3, 20), (4, 33), (2, 7)])
+def test_k_equal_to_n_matches_jax(D, N):
+    x = _points(2, N, D, seed=30 + N)
+    ours = tknn.knn_indices(torch.from_numpy(x), N)
+    ref = np.asarray(j_knn(jnp.asarray(x), N, mode="exact"))
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    # every row is a permutation of the cloud
+    assert bool((torch.sort(ours, dim=-1).values == torch.arange(N)).all())
+
+
+@pytest.mark.parametrize("D", [3, 4])
+def test_k_at_the_kernel_limit_matches_jax(D):
+    x = _points(1, tknn.MAX_K + 40, D, seed=40 + D)
+    ours = tknn.knn_indices(torch.from_numpy(x), tknn.MAX_K)
+    ref = np.asarray(j_knn(jnp.asarray(x), tknn.MAX_K, mode="exact"))
+    assert ours.shape == (1, tknn.MAX_K + 40, tknn.MAX_K)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+
+
+def _hard_rows(seed, n=48):
+    """fp32 rows (6, n) with ties, +-0.0, +-inf and NaNs of several
+    payloads; rows 4 and 5 hold fewer finite entries than the k asked."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(6, n)).astype(np.float32)
+    d[:, 5:9] = 0.0
+    d[:, 9:13] = -0.0
+    d[0, 13:20] = d[0, 2]  # a run of ties
+    d[1, ::7] = np.inf
+    d[1, 3::11] = -np.inf
+    bits = d.view(np.uint32)
+    bits[2, 4] = 0x7FC00123  # quiet NaN with a payload
+    bits[2, 30] = 0xFFC00001  # negative NaN
+    bits[2, 17] = 0x7F800001  # signalling-NaN pattern
+    d[3] = np.round(d[3] * 2) / 2  # a coarse grid: many ties
+    d[4] = -np.inf
+    d[4, [3, 40, 41]] = [1.0, np.nan, -0.0]
+    d[5] = -np.inf
+    return torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("k", [1, 5, 20, 48])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_order_key_selection_matches_argmax_rounds(seed, k):
+    """The kernel's selection rule, modelled in PyTorch: sorting by the
+    packed order key gives the argmax rounds' picks, ties and signed zeros
+    by index, every NaN payload above +inf, and index 0 once every entry
+    above -inf is spent."""
+    d = _hard_rows(seed)
+    got = tknn.select_by_order_key(d, k)
+    ref = tknn.argmax_rounds(d.clone(), k)
+    assert torch.equal(got, ref)
+    if k >= 4:
+        assert got[4, :4].tolist() == [40, 3, 41, 0]
+        assert got[5].tolist() == [0] * k
+
+
+def test_order_key_is_monotone_and_folds_signed_zero_and_nan():
+    v = torch.tensor([-np.inf, -1e30, -1.0, -1e-45, -0.0, 0.0, 1e-45, 1.0,
+                      np.inf, np.nan], dtype=torch.float32)
+    u = tknn.order_key(v)
+    assert bool((u[1:4] > u[:3]).all()) and u[4] == u[5]
+    assert bool((u[6:] > u[5:-1]).all())
+    assert int(u[0]) == 0x007FFFFF and int(u[-1]) == 0xFFFFFFFF
+    payloads = torch.tensor([0x7FC00123, -0x003FFFFF, 0x7F800001],
+                            dtype=torch.int32).view(torch.float32)
+    assert bool((tknn.order_key(payloads) == 0xFFFFFFFF).all())
+
+
+@pytest.mark.parametrize("D", [3, 64])
+def test_plain_version_equals_order_key_model(D):
+    x = torch.from_numpy(_points(2, 90, D, seed=50 + D))
+    d = tknn._neg_sq_dist(x)
+    assert torch.equal(tknn.knn_indices_plain(x, 20),
+                       tknn.select_by_order_key(d, 20))

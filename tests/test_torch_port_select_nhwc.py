@@ -203,3 +203,58 @@ def test_select_backward_matches_plain_autograd(kernel):
     plain = torch.autograd.grad(ref, srcs, g)
     for a, b in zip(ours, plain):
         assert torch.equal(a, b)
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """The raw words of a float32 or bfloat16 array, as integers."""
+    return a.view(np.int32 if a.dtype == np.float32 else np.int16)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("N", [7, 33])
+@pytest.mark.parametrize("S", [1, 2, 3, 4])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5])
+def test_k3_plain_bitidentical_to_pallas_any_sources(C, S, N, dtype):
+    """K3's plain version against `_pallas_selectn_ilv` in interpret mode,
+    compared as integers: 1-4 sources picked at random (not only the C_n
+    tables), N not a multiple of the kernel's 32-pixel tiles, C = 1-5 and
+    quarter-turn indices in [-8, 8), negative ones included."""
+    rng = np.random.default_rng(100 * C + 10 * S + N)
+    B = 5
+    src = rng.integers(0, S, size=B).astype(np.int32)
+    k = rng.integers(-8, 8, size=B).astype(np.int32)
+    k[:2] = [-1, -3]
+    pairs = [_pair(rng.normal(size=(B, N, N, C)).astype(np.float32), dtype)
+             for _ in range(S)]
+    ours = tsw.select_planes_nhwc([p[0] for p in pairs], _t(src), _t(k))
+    flat = [p[1].reshape(B, N, N * C) for p in pairs]
+    if len(flat) == 1:
+        flat = flat * 2  # the JAX entry's degenerate second source
+    ref = np.asarray(jsw._pallas_selectn_ilv(tuple(flat), jnp.asarray(src),
+                                             jnp.asarray(k), C, interpret=True))
+    ours_np = ours.view(torch.int32 if dtype == "float32" else torch.int16).numpy()
+    assert np.array_equal(ours_np, _bits(ref).reshape(B, N, N, C))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 3, 4, 8, 16])
+def test_k3_launch_path_follows_channels_dtype_and_alignment(dtype, C):
+    """K3 takes K5's 16-byte-word path when a pixel is whole words and every
+    source and the output are 16-byte aligned, else the shared-memory tile
+    path; the choice reads only shapes and pointers."""
+    srcs = [torch.zeros(2, 9, 9, C, dtype=dtype) for _ in range(2)]
+    out = torch.empty_like(srcs[0])
+    whole = (C * srcs[0].element_size()) % 16 == 0
+    assert tsw._nhwc_path(srcs, out) == ("word" if whole else "tile")
+    view = torch.zeros(srcs[0].numel() + 1, dtype=dtype)[1:].view_as(srcs[0])
+    assert tsw._nhwc_path([srcs[0], view], out) == "tile"
+    assert tsw._nhwc_path(srcs, view) == "tile"
+
+
+def test_k3_launch_checks_the_per_sample_offset_limit():
+    """The kernels address a sample with int offsets: N * N * C >= 2^31 is
+    refused before any launch."""
+    big = torch.empty(1, 46341, 46341, 1, device="meta")
+    zero = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        tsw._launch("select_planes_nhwc", [big], zero, zero, None, None, 1, 1)
