@@ -7,11 +7,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc compiles the port's CUDA sources from this checkout, one
-   nvcc per source, all started together;
+   nvcc per source, all started together; every select and shear kernel
+   must report 0 bytes of stack frame and no spills (ptxas);
 3. kernels against their plain PyTorch versions:
    - K1 (steered rotate-select) and K2 (fused rotate-select-roll) with
      `torch.equal` (fp32 and bf16; C4, C8, D8; C in {3, 16}; random
      indices, shifts and reflections; and the full main-path shapes);
+   - K1 and K2 bit for bit as integers against the plain version run on
+     the same bit patterns: N in {1, 17, 31, 32, 33, 97, 224}, C4, D4, C8,
+     D8, every k, negative shifts, a NaN payload and a -0.0 in every
+     plane, on aligned sources (the word path where a row is whole 16-byte
+     words) and on misaligned views (the element path); both paths
+     required;
    - K3 (the channels-last select) bit for bit as integers against its
      plain version and against K1 on the same data in NCHW memory: N in
      {1, 31, 32, 33, 97, 224}, C in {1, 2, 3, 4, 5, 16}, 1-4 sources,
@@ -22,6 +29,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and one bf16 ulp (bf16), on ragged small cases and the main-path
      shapes, fp32 and bf16, both padding modes, with a NaN rotation in
      every batch (its sample must be all NaN, the others finite);
+   - K6 within that bar, its max |diff| logged (0 expected), on 144 wider
+     cases: 17, 33, 97, 224, 24 x 40 and 256 x 256 (over the
+     shared-memory limit), C in {1, 3, 4, 5, 8, 16}, both paddings and
+     dtypes, each also on a misaligned view; the resident path with and
+     without 16-byte words and the passes path required;
    - K5 bit for bit as integers (a NaN payload and a -0.0 in every input)
      and K7 within its bar on 120 wider cases: sizes 17, 33, 40, 97, 224,
      C in {1, 3, 4, 5, 8, 16}, both paddings and dtypes, so both launch
@@ -132,9 +144,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the overhead over the bare ResNet-50 at 96 px and the canonicalizer's
    parts; and per kernel its time, its bound, its plain version's time,
    one PyTorch call's time where one computes the same function, its
-   launches and, for K1 / K3 / K2, the time of its backward. Kernel and
-   library times are medians of 5 windows of CUDA events, with their min
-   and max, the kernel's and the library call's windows taking turns.
+   launches, the launch path each main-path launch took (`paths`: K1 and
+   K2 must all have taken "word", K6 "resident") and, for K1 / K3 / K2,
+   the time of its backward; for K6 also the time with clusters of one
+   block (`one_block_ms`, the design that lost). Kernel and library
+   times are medians of 5 windows of CUDA events, with their min and max,
+   the kernel's and the library call's windows taking turns.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
@@ -245,22 +260,27 @@ def sync():
 
 
 def ptxas_report(text: str):
-    """Registers, spill bytes and static shared memory of each kernel from
-    nvcc's `-Xptxas -v` output: [{"kernel", "registers", "spill_stores",
-    "spill_loads", "smem"}] (dynamic shared memory is not in this report)."""
+    """Registers, stack frame, spill bytes and static shared memory of each
+    kernel from nvcc's `-Xptxas -v` output: [{"kernel", "registers",
+    "stack_frame", "spill_stores", "spill_loads", "smem"}] (dynamic shared
+    memory is not in this report)."""
     rows, cur = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = {"kernel": m.group(1), "registers": None, "spill_stores": 0,
-                   "spill_loads": 0, "smem": 0}
+            cur = {"kernel": m.group(1), "registers": None, "stack_frame": 0,
+                   "spill_stores": 0, "spill_loads": 0, "smem": 0}
             rows.append(cur)
             continue
         if cur is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            cur["stack_frame"] = max(cur["stack_frame"], int(m.group(1)))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            cur["spill_stores"] = max(cur["spill_stores"], int(m.group(1)))
+            cur["spill_loads"] = max(cur["spill_loads"], int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
@@ -338,6 +358,59 @@ def check_kernels(sw, gen):
                     assert torch.equal(got, ref), ("K2", dtype, group, C, b, size)
                     n_checked += 1
     log(f"kernel checks: {n_checked} small cases torch.equal to the plain versions")
+
+
+def misaligned(x):
+    """The values of x in a contiguous view that starts one element into its
+    buffer: never 16-byte aligned."""
+    v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view_as(x)
+    return v.copy_(x)
+
+
+def check_select_wide(sw, gen):
+    """K1 and K2 bit for bit (as integers) against their plain versions run
+    on the same bit patterns: N in {1, 17, 31, 32, 33, 97, 224}, C4, D4, C8
+    and D8 (C = |G|), two sources, every k (some negative), negative and
+    positive shifts, reflections, fp32 and bf16, a NaN payload and a -0.0 in
+    every plane. Each case runs on aligned sources (the word path where a
+    row is whole 16-byte words: N = 32, 224) and on 16-byte-misaligned views
+    of them, which must take the element path. Launches here are not
+    counted as the main paths'."""
+    cases, paths = 0, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for group, (n, reflect) in {"C4": (4, False), "D4": (4, True),
+                                    "C8": (8, False), "D8": (8, True)}.items():
+            G = 2 * n if reflect else n
+            for N in (1, 17, 31, 32, 33, 97, 224):
+                b = 4 if N == 224 else 8
+                srcs = []
+                for _ in range(2):
+                    x = torch.randn(b, G, N, N, generator=gen).to(dtype)
+                    orbit_bits(x).flatten(2)[..., 0] = (
+                        0x7FC00123 if x.element_size() == 4 else 0x7FC3)
+                    x.flatten(2)[..., -1] = -0.0
+                    srcs.append(x.to(DEVICE))
+                src = torch.randint(0, 2, (b,), generator=gen).int().to(DEVICE)
+                k = (torch.arange(b) % 4 - 4 * (torch.arange(b) % 3)).int().to(DEVICE)
+                shift = torch.randint(-2 * n, 2 * n, (b,), generator=gen).int().to(DEVICE)
+                refl = (torch.arange(b) // 2 % 2).int().to(DEVICE) if reflect else None
+                words = [orbit_bits(s_) for s_ in srcs]
+                ref1 = sw.select_planes_plain(words, src, k)
+                ref2 = sw.select_planes_plain(words, src, k, shift, refl, G, n)
+                for inp in (srcs, [misaligned(s_) for s_ in srcs]):
+                    got1 = sw.select_planes(inp, src, k)
+                    got2 = sw.select_planes_rolled(inp, src, k, shift, G, n, refl)
+                    sync()
+                    path = sw._rolled_path(inp, got1)
+                    assert inp is srcs or path == "element", (N, path)
+                    paths.add(path)
+                    assert torch.equal(orbit_bits(got1), ref1), ("K1", dtype, N, path)
+                    assert torch.equal(orbit_bits(got2), ref2), ("K2", dtype, group, N, path)
+                cases += 1
+    assert paths == {"word", "element"}, paths
+    log(f"K1 / K2 wide checks: {cases} cases, each on aligned and misaligned "
+        f"sources, bit-equal to the plain versions; paths {sorted(paths)}")
+    return {"cases": cases, "paths": sorted(paths)}
 
 
 def rotations(theta):
@@ -461,6 +534,45 @@ def check_k5_k7_wide(sr, bw, gen):
     return {"cases": cases, "paths": sorted("/".join(p) for p in paths)}
 
 
+def check_k6_wide(sr, gen):
+    """K6 within `within_bar` of its plain version, the max |diff| logged
+    (0 expected: the same fp32 operations in the same order): sizes 17, 33,
+    97, 224, a non-square 24 x 40 and 256 x 256 (over the shared-memory
+    limit: the "passes" path), C in {1, 3, 4, 5, 8, 16}, fp32 and bf16,
+    both paddings, a NaN rotation in sample 0 (its sample all NaN, the
+    others finite). Each case also runs on a 16-byte-misaligned view of the
+    same values (no 16-byte words). Every path must be taken: resident with
+    and without words, and passes. Launches here are not counted as the
+    main paths'."""
+    cases, paths, worst = 0, set(), 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, W in ((17, 17), (33, 33), (97, 97), (224, 224), (24, 40), (256, 256)):
+            b = 2 if H >= 224 else 4
+            for C in (1, 3, 4, 5, 8, 16):
+                x, _, r, _ = continuous_inputs(b, H, W, C, dtype, gen)
+                view = misaligned(x)
+                cx, cy = float(W // 2), float(H // 2)
+                for padding in ("border", "zeros"):
+                    ref = sr.shear_rotate_residual_plain(x, r, cx, cy, padding)
+                    for inp in (x, view):
+                        got = sr.shear_rotate_residual(inp, r, cx, cy, padding)
+                        sync()
+                        worst = max(worst, within_bar(got, ref, x))
+                        assert bool(torch.isnan(got[0].float()).all()), ("K6", H, W, C)
+                        assert bool(torch.isfinite(got[1:].float()).all()), ("K6", H, W, C)
+                        path = sr._shear_path(inp)
+                        if path == "resident":
+                            cluster = sr._shear_cluster(C, inp.element_size())
+                            words = sr._shear_words(inp, got, cluster)
+                            path += "/words" if words else "/runs"
+                        paths.add(path)
+                    cases += 1
+    assert paths == {"resident/words", "resident/runs", "passes"}, paths
+    log(f"K6 wide checks: {cases} cases, each on an aligned and a misaligned "
+        f"input, within the bar, max |diff| {worst}; paths {sorted(paths)}")
+    return {"cases": cases, "paths": sorted(paths), "max_abs_diff": worst}
+
+
 def grad_guard_phase(orb, sr, bw, gen):
     """K4-K7 (and the fast warp K5 + K6) with CUDA inputs that require grad:
     each wrapper must raise under grad mode before it launches, and under
@@ -563,8 +675,10 @@ def backward_ms(sw, name, srcs, src, k, shift):
     return ms
 
 
-def kernel_entry(sw, name, dtype, gen, bw, launches, one_source=False):
-    """Check and time one kernel at its main-path shape."""
+def kernel_entry(sw, name, dtype, gen, bw, launches, one_source=False,
+                 paths=None):
+    """Check and time one kernel at its main-path shape; `paths` are the
+    main paths' launches of it by launch path."""
     rolled = name == "select_planes_rolled"
     nhwc = name == "select_planes_nhwc"
     C = FEATURE_CH if rolled else 3
@@ -592,10 +706,13 @@ def kernel_entry(sw, name, dtype, gen, bw, launches, one_source=False):
     if one_source:
         tag += ",1 source"
         replaces = "equiadapt_tpu/ops/pallas/select_warp.py:159"
+    prefix = f"{name}/{tag.split(',')[0]}/"
     return {
         "name": f"{name}[{tag}]", "route": "cuda", "source": SOURCE,
         "replaces": replaces,
         "launches": launches.get(f"{name}/{tag}", 0),
+        "paths": {k.removeprefix(prefix): v for k, v in (paths or {}).items()
+                  if k.startswith(prefix)},
         "max_abs_err": err, **timed, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes",
         "library": "torch.gather, precomputed int64 index",
@@ -661,6 +778,14 @@ def continuous_measure(sr, bw, name, dtype, C, padding, gen, bwidth):
         fns["library_ms"] = rot90_gather_call(sr, x, k, padding, got)
         out["library"] = "torch.gather, precomputed int64 index, one zero prepended"
         out["path"] = sr._select_path(x, got)
+    if name == "shear_rotate_residual":
+        cluster = sr._shear_cluster(C, x.element_size())
+        out.update(path=sr._shear_path(x), cluster=cluster,
+                   words=sr._shear_words(x, got, cluster))
+        if cluster > 1:  # the other design: one block a channel, L2 over-read
+            fns["one_block_ms"] = one_block_clusters(sr, run)
+            assert torch.equal(orbit_bits(fns["one_block_ms"]()), orbit_bits(got)), (
+                name, dtype, C)
     if name == "warp_rotate_center_exact":
         fns["library_ms"] = grid_sample_call(x, R, padding)
         diff = (fns["library_ms"]().permute(0, 2, 3, 1).float() - got.float()).abs()
@@ -673,15 +798,32 @@ def continuous_measure(sr, bw, name, dtype, C, padding, gen, bwidth):
     return out
 
 
-def continuous_entry(sr, bw, name, dtype, gen, bwidth, launches):
+def one_block_clusters(sr, run):
+    """run() with K6's clusters cut to one block: each block loads and
+    stores its own channel and L2 serves the pixel's other channels."""
+    def call():
+        keep = sr._shear_cluster
+        sr._shear_cluster = lambda C, element_size: 1
+        try:
+            return run()
+        finally:
+            sr._shear_cluster = keep
+    return call
+
+
+def continuous_entry(sr, bw, name, dtype, gen, bwidth, launches, paths=None):
     """One `kernels` entry: the invert shape (C = 16, zeros) in the main
-    fields, the canonicalize shape (C = 3, border) under "canon"."""
+    fields, the canonicalize shape (C = 3, border) under "canon"; `paths`
+    are the main paths' launches by launch path."""
     tag = str(dtype).removeprefix("torch.")
     inv = continuous_measure(sr, bw, name, dtype, FEATURE_CH, "zeros", gen, bwidth)
     canon = continuous_measure(sr, bw, name, dtype, 3, "border", gen, bwidth)
     source, replaces = CONT_KERNEL[name]
+    prefix = f"{name}/{tag}/"
     return {"name": f"{name}[{tag}]", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(f"{name}/{tag}", 0),
+            "paths": {k.removeprefix(prefix): v for k, v in (paths or {}).items()
+                      if k.startswith(prefix)},
             "bound_by": "bytes", **inv, "canon": canon}
 
 
@@ -1731,6 +1873,7 @@ def train_phase(tp, sw, mode, gen):
     metrics = tp.make_eval_step(loss_kw)(state.model, {"image": x, "label": labels})
     sync()
     out["validation_launches"] = dict(sw.launches)
+    out["validation_paths"] = dict(sw.path_launches)
     assert sw.launches.get(want, 0) >= 1, (mode, sw.launches)
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values()), metrics
     out["validation"] = {k: v.item() for k, v in metrics.items()}
@@ -1838,6 +1981,7 @@ def invert_diff_phase(tp, sw, gen):
             y, grads = run()
             sync()
             k2_launches = sw.launches.get(f"select_planes_rolled/{tag}", 0)
+            k2_paths = dict(sw.path_launches)
             assert sw.launches == {f"select_planes_rolled/{tag}": 2}, sw.launches
             ms = cuda_ms(run, reps=3, warmup=1)
             cpu = [t[:8].cpu() if t is not None else None for t in (fm, oh, refl, g)]
@@ -1865,7 +2009,7 @@ def invert_diff_phase(tp, sw, gen):
                         "max_abs_map_grad_wrong_element": d_wrong,
                         "rel_onehot_grad": rel[0],
                         "rel_reflection_grad": rel[1] if reflect else None,
-                        "launches": k2_launches}
+                        "launches": k2_launches, "paths": k2_paths}
             log(f"invert_regular_fast_diff {key}: {json.dumps(out[key])}")
             del fm, oh, refl, g, y, grads
     torch.cuda.empty_cache()
@@ -1977,14 +2121,21 @@ def main() -> int:
         results["ptxas"][src] = report
         for row in report:
             log(f"ptxas {src}.cu {row['kernel']}: {row['registers']} registers, "
+                f"{row['stack_frame']} bytes stack frame, "
                 f"spills {row['spill_stores']} / {row['spill_loads']} bytes, "
                 f"{row['smem']} bytes static smem")
+    for src in ("select_warp", "shear_rotate"):  # no local memory
+        rows = results["ptxas"][src]
+        assert rows and all(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0
+                            for r in rows), (src, rows)
 
     gen = torch.Generator().manual_seed(0)
     check_kernels(sw, gen)
     check_continuous_kernels(sr, bw, gen)
     gen_wide = torch.Generator().manual_seed(14)
     k5_k7_checks = check_k5_k7_wide(sr, bw, gen_wide)
+    select_checks = check_select_wide(sw, torch.Generator().manual_seed(16))
+    k6_checks = check_k6_wide(sr, torch.Generator().manual_seed(17))
     guard_checks = grad_guard_phase(orb, sr, bw, torch.Generator().manual_seed(15))
     gen_knn = torch.Generator().manual_seed(1)  # leaves `gen`'s images as they were
     knn_checks = check_knn_kernel(kn, gen_knn)
@@ -2007,6 +2158,12 @@ def main() -> int:
     ys = {"exact": y, "serving": y.to(torch.bfloat16),
           "serving_nchw": y.to(torch.bfloat16)}
     launches, checks, times = {}, {}, {}
+    paths = {}  # K1 / K2 / K6 launches of the main paths by launch path
+
+    def add_paths(counts):
+        for key, v in counts.items():
+            paths[key] = paths.get(key, 0) + v
+
     with torch.no_grad():
         for preset, (canon, resnet) in presets.items():
             x = xs_in[preset]
@@ -2016,8 +2173,9 @@ def main() -> int:
             sync()
             src_log.stop()
             counts = dict(sw.launches)
+            add_paths(sw.path_launches)
             launches.update({f"{preset}:{k}": v for k, v in counts.items()})
-            log(f"{preset}: launches {counts}")
+            log(f"{preset}: launches {counts}, paths {sw.path_launches}")
             for key in PRESET_KERNELS[preset]:
                 assert counts.get(key, 0) > 0, (preset, key, counts)
             x_c, info, logits, y_inv = out
@@ -2059,8 +2217,11 @@ def main() -> int:
             out = run_path(canon, resnet, xs, yy, induced_rep_type="scalar")
             sync()
             counts = {**sw.launches, **sr.launches, **bw.launches}
+            add_paths(sw.path_launches)
+            add_paths(sr.path_launches)
             launches.update({f"{preset}:{k}": v for k, v in counts.items()})
-            log(f"{preset}: launches {counts}")
+            log(f"{preset}: launches {counts}, paths "
+                f"{ {**sw.path_launches, **sr.path_launches} }")
             for key in CONT_PRESET_KERNELS[preset]:
                 assert counts.get(key, 0) > 0, (preset, key, counts)
             x_c, info, logits, y_inv = out
@@ -2119,6 +2280,7 @@ def main() -> int:
         sync()
         src_log.stop()
         counts = {**sw.launches, **orb.launches}
+        add_paths(sw.path_launches)
         orbit_launches["group_inference"] = counts
         launches.update({f"group_inference:{k}": v for k, v in counts.items()})
         log(f"group_inference: launches {counts}, select sources "
@@ -2149,6 +2311,7 @@ def main() -> int:
             sync()
             src_log.stop()
             counts = {**sw.launches, **orb.launches}
+            add_paths(sw.path_launches)
             orbit_launches[path] = counts
             sources = src_log.select_launches(path)
             launches.update({f"{path}:{k}": v for k, v in counts.items()})
@@ -2184,12 +2347,25 @@ def main() -> int:
                 src_log.stop()
                 launches.update({f"train_{mode}:{k}": v for k, v in
                                  times[f"train_{mode}"]["validation_launches"].items()})
+                add_paths(times[f"train_{mode}"]["validation_paths"])
             checks["train_vs_cpu"] = train_vs_cpu(tp, gen_train)
         gen_inv = torch.Generator().manual_seed(12)
         times["invert_diff"] = invert_diff_phase(tp, sw, gen_inv)
         for key, row in times["invert_diff"].items():
             launches[f"invert_diff_{key}:select_planes_rolled/{key.split('/')[1]}"] = (
                 row["launches"])
+            add_paths(row["paths"])
+        # the main paths' K1 and K2 launches took the word path, K6 the
+        # resident one (the wide checks take the others)
+        log(f"main-path launches by path: {paths}")
+        for key in paths:
+            kname = key.split("/")[0]
+            assert kname not in ("select_planes", "select_planes_rolled") or (
+                key.endswith("/word")), (key, paths)
+            assert kname != "shear_rotate_residual" or key.endswith("/resident"), (key, paths)
+        assert any(k.startswith("shear_rotate_residual/") for k in paths), paths
+        checks["select_wide"] = select_checks
+        checks["k6_wide"] = k6_checks
         checks["select_gradients"] = select_gradient_phase(
             sw, torch.Generator().manual_seed(13))
         checks["k3"] = k3_checks
@@ -2209,9 +2385,9 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             for kname in TPU_KERNEL:
                 kernels.append(kernel_entry(sw, kname, dtype, gen, bwidth,
-                                            k1_launches))
+                                            k1_launches, paths=paths))
             kernels.append(kernel_entry(sw, "select_planes", dtype, gen, bwidth,
-                                        k1_launches, one_source=True))
+                                        k1_launches, one_source=True, paths=paths))
         for dtype in (torch.float32, torch.bfloat16):
             for kname in CONT_KERNEL:
                 tag = str(dtype).removeprefix("torch.")
@@ -2219,7 +2395,7 @@ def main() -> int:
                     f"{kname}/{tag}": sum(v for k, v in launches.items()
                                           if k.endswith(f":{kname}/{tag}"))}
                 kernels.append(continuous_entry(sr, bw, kname, dtype, gen_dev,
-                                                bwidth, main_launches))
+                                                bwidth, main_launches, paths))
         kernels += knn_entries(kn, gen_knn, bwidth, rate, pc_counts)
         kernels += orbit_entries(orb, gen_orbit, bwidth, orbit_launches)
         checks["orbit"] = orbit_checks

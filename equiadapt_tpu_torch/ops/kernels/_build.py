@@ -40,7 +40,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-# compiler output (ptxas register and shared-memory report) per source
+# compiler output (ptxas register and shared-memory report) per source, kept
+# beside each library (`<library>.log`) and read back when it is built already
 build_logs: Dict[str, str] = {}
 
 
@@ -70,12 +71,15 @@ def _target(name: str) -> Path:
 def build_all(names: Iterable[str] = SOURCES) -> None:
     """Compile every named source not built yet, one nvcc each, all started
     together; each library is written under a temporary name and renamed
-    when its nvcc succeeds."""
+    when its nvcc succeeds, its compiler output beside it."""
     with _lock:
         jobs = []
         for name in names:
             target = _target(name)
             if target.exists():
+                log = target.with_suffix(".log")
+                if log.exists():
+                    build_logs[name] = log.read_text()
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -89,6 +93,7 @@ def build_all(names: Iterable[str] = SOURCES) -> None:
             build_logs[name] = log
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            target.with_suffix(".log").write_text(log)
             os.replace(tmp, target)
 
 

@@ -19,7 +19,9 @@ the select is linear in its sources, and its backward is one more launch of
 the same kernel (the inverse permutation, with the cotangent as the only
 source), then a mask per source. No gradient reaches the indices.
 `launches` counts the kernel launches of each wrapper, by dtype, backward
-launches included.
+launches included; `path_launches` counts them again by launch path (K1 and
+K2: "word" or "element", `_rolled_path`; K3: "word" or "tile",
+`_nhwc_path`).
 
 `rotate_select` routes by memory layout: an NHWC-contiguous batch takes K3,
 a (B, H, W, C) view of NCHW memory takes K1 with no copy.
@@ -59,10 +61,13 @@ MAX_SOURCES = 4
 
 # kernel launches per wrapper and dtype, e.g. launches["select_planes/bfloat16"]
 launches: Dict[str, int] = {}
+# the same launches by path, e.g. path_launches["select_planes_rolled/bfloat16/word"]
+path_launches: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     launches.clear()
+    path_launches.clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,7 +97,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.eqt_select_warp
     if fn.argtypes is None:
         fn.argtypes = [ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp,
-                       ci, ci, ci, ci, ci, vp]
+                       ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     fn = lib.eqt_select_warp_nhwc
     if fn.argtypes is None:
@@ -117,6 +122,8 @@ def _check(sources: Sequence[Tensor], idx: Sequence[Tensor],
     for t in idx:
         if t.shape != (B,):
             raise ValueError(f"per-sample index of shape ({B},), got {tuple(t.shape)}")
+        if t.is_floating_point() or t.is_complex() or t.dtype == torch.bool:
+            raise TypeError(f"per-sample indices must be integer tensors, got {t.dtype}")
 
 
 def _selected(sources: Sequence[Tensor], src_idx: Tensor) -> Tensor:
@@ -179,6 +186,17 @@ def _nhwc_path(sources: Sequence[Tensor], out: Tensor) -> str:
     return "word" if _build.whole_words(*sources, out) else "tile"
 
 
+def _rolled_path(sources: Sequence[Tensor], out: Tensor) -> str:
+    """K1's and K2's launch path: "word" (16-byte words, a block a plane)
+    when a plane row is whole words (N * element size a multiple of 16),
+    every source and the output start on a 16-byte boundary and a plane
+    holds fewer than 2^24 words, "element" (one element a thread in 32 x 32
+    tiles) otherwise."""
+    N = out.shape[-1]
+    small = N * N * out.element_size() < 16 * 2**24
+    return "word" if small and _build.whole_words(*sources, out) else "element"
+
+
 def _launch(name: str, sources, src_idx, k_idx, shift, refl, G, n) -> Tensor:
     s0 = sources[0]
     if s0.dtype not in _build.DTYPE_CODES:
@@ -204,20 +222,22 @@ def _launch(name: str, sources, src_idx, k_idx, shift, refl, G, n) -> Tensor:
     stream = torch.cuda.current_stream(s0.device).cuda_stream
     code = _build.DTYPE_CODES[s0.dtype]
     if name == _NHWC:
+        path = _nhwc_path(sources, out)
         err = _lib().eqt_select_warp_nhwc(
             code, *ptrs, len(sources), out.data_ptr(), idx[0].data_ptr(),
-            idx[1].data_ptr(), B, N, C, int(_nhwc_path(sources, out) == "word"),
-            stream)
+            idx[1].data_ptr(), B, N, C, int(path == "word"), stream)
     else:
+        path = _rolled_path(sources, out)
         err = _lib().eqt_select_warp(
             code, *ptrs, len(sources), out.data_ptr(),
             *[t.data_ptr() if t is not None else None for t in idx],
-            B, C, N, G, n, stream,
+            B, C, N, G, n, int(path == "word"), stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     key = f"{name}/{str(s0.dtype).removeprefix('torch.')}"
     launches[key] = launches.get(key, 0) + 1
+    path_launches[f"{key}/{path}"] = path_launches.get(f"{key}/{path}", 0) + 1
     return out
 
 
@@ -304,6 +324,8 @@ def select_planes_rolled(
     _check(sources, [src_idx, k_idx] + extra)
     C = sources[0].shape[1]
     G, n = num_group, num_rotations
+    if n < 1:
+        raise ValueError(f"num_rotations must be >= 1, got {n}")
     if G not in (n, 2 * n) or C % G != 0:
         raise ValueError(f"regular rep: C={C} must divide by |G|={G} in (n, 2n)")
     if (refl is not None) != (G == 2 * n):

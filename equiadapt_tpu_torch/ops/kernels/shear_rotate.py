@@ -17,8 +17,13 @@ Both wrappers launch the hand-written CUDA kernels of `csrc/shear_rotate.cu`
 for CUDA tensors, take the plain PyTorch versions beside them for CPU
 tensors, and raise for anything else. K5 moves whole 16-byte words of a
 pixel where C and the pointers allow, and stages 32 x 32 tiles through
-shared memory otherwise (`_select_path`). `launches` counts wrapper calls
-that launched a kernel, by dtype (K6's three passes are one call).
+shared memory otherwise (`_select_path`). K6 keeps each (b, c) plane in
+shared memory for all three shears, one launch with no scratch, where the
+fp32 plane fits (`_shear_path`: "resident"); the blocks of a cluster
+(`_shear_cluster`) own consecutive channels of a sample and load and store
+whole pixel runs together. Larger planes take three launches through fp32
+scratch ("passes"). `launches` counts wrapper calls that launched a kernel,
+by dtype; `path_launches` counts them again by launch path.
 
 Neither kernel has a backward: under grad mode, an input that requires grad
 raises on the card (`_build.refuse_grad`) instead of returning a result
@@ -60,15 +65,24 @@ _DIFFERENTIABLE = (
 
 # kernel launches per wrapper and dtype, e.g. launches["shear_rotate_residual/bfloat16"]
 launches: Dict[str, int] = {}
+# the same launches by path, e.g. path_launches["shear_rotate_residual/bfloat16/resident"]
+path_launches: Dict[str, int] = {}
+
+# K6's resident path: the shared memory a block may opt into on sm_90, and
+# the portable cluster size
+RESIDENT_MAX_BYTES = 232448
+MAX_CLUSTER = 8
 
 
 def reset_launches() -> None:
     launches.clear()
+    path_launches.clear()
 
 
-def _count(name: str, dtype: torch.dtype) -> None:
+def _count(name: str, dtype: torch.dtype, path: str) -> None:
     key = f"{name}/{str(dtype).removeprefix('torch.')}"
     launches[key] = launches.get(key, 0) + 1
+    path_launches[f"{key}/{path}"] = path_launches.get(f"{key}/{path}", 0) + 1
 
 
 def _lib() -> ctypes.CDLL:
@@ -81,6 +95,9 @@ def _lib() -> ctypes.CDLL:
         lib.eqt_shear_rotate_residual.argtypes = [
             ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, ci, vp]
         lib.eqt_shear_rotate_residual.restype = ci
+        lib.eqt_shear_rotate_resident.argtypes = [
+            ci, vp, vp, vp, ci, ci, ci, ci, cf, cf, ci, ci, ci, ci, vp]
+        lib.eqt_shear_rotate_resident.restype = ci
     return lib
 
 
@@ -182,14 +199,15 @@ def _launch_select(x: Tensor, k_idx: Tensor, cx: int, cy: int,
     table = (ctypes.c_int * 8)(*[s[0] for s in shifts], *[s[1] for s in shifts])
     k = k_idx.to(torch.int32).contiguous()
     out = torch.empty_like(x)
+    path = _select_path(x, out)
     err = _lib().eqt_rot90_centered_select(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), k.data_ptr(), table,
-        int(padding_mode == "zeros"), B, H, C, int(_select_path(x, out) == "word"),
+        int(padding_mode == "zeros"), B, H, C, int(path == "word"),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"rot90_centered_select launch failed: cudaError {err}")
-    _count("rot90_centered_select", x.dtype)
+    _count("rot90_centered_select", x.dtype, path)
     return out
 
 
@@ -260,21 +278,69 @@ def shear_rotate_residual(z: Tensor, r: Tensor, cx: float, cy: float,
     return _launch_shear(z, r, cx, cy, padding_mode)
 
 
+def _resident_bytes(H: int, W: int) -> int:
+    """The shared memory a block of K6's resident path holds: one fp32
+    plane of H rows, W | 1 floats apart (an odd pitch, so that a warp
+    walking a column touches 32 banks)."""
+    return H * (W | 1) * 4
+
+
+def _shear_path(z: Tensor) -> str:
+    """K6's launch path, by shape: "resident" (one launch, each (b, c)
+    plane in shared memory for the three shears) when the plane fits in
+    RESIDENT_MAX_BYTES, "passes" (three launches through fp32 scratch)
+    otherwise."""
+    _, H, W, _ = z.shape
+    return "resident" if _resident_bytes(H, W) <= RESIDENT_MAX_BYTES else "passes"
+
+
+def _shear_cluster(C: int, element_size: int) -> int:
+    """The blocks of a resident cluster. Rank q of the cluster of channel c
+    owns channel c - c % size + q, so a cluster loads and stores runs of
+    `size` channels of each pixel: one 16-byte word of channels (8 bf16, 4
+    fp32) where that divides C, else the whole pixel where C <= MAX_CLUSTER,
+    else the largest divisor of C up to MAX_CLUSTER."""
+    word = 16 // element_size
+    if C % word == 0:
+        return word
+    if C <= MAX_CLUSTER:
+        return C
+    return max(d for d in range(1, MAX_CLUSTER + 1) if C % d == 0)
+
+
+def _shear_words(z: Tensor, out: Tensor, cluster: int) -> bool:
+    """Whether a resident cluster moves 16-byte words: its run of channels
+    and a pixel are whole words and both pointers 16-byte aligned."""
+    return (cluster * z.element_size()) % 16 == 0 and _build.whole_words(z, out)
+
+
 def _launch_shear(z: Tensor, r: Tensor, cx: float, cy: float,
                   padding_mode: str) -> Tensor:
+    """K6 on the card. The resident path takes no scratch; the passes path
+    allocates two fp32 copies of the batch."""
     _check_launch(z)
     B, H, W, C = z.shape
     ab = _shear_coefficients(r).contiguous()
     out = torch.empty_like(z)
-    scratch = torch.empty((2,) + tuple(z.shape), dtype=torch.float32, device=z.device)
-    err = _lib().eqt_shear_rotate_residual(
-        _build.DTYPE_CODES[z.dtype], z.data_ptr(), out.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), ab.data_ptr(), B, H, W, C, float(cx), float(cy),
-        int(padding_mode == "zeros"), torch.cuda.current_stream(z.device).cuda_stream,
-    )
+    code, zeros = _build.DTYPE_CODES[z.dtype], int(padding_mode == "zeros")
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    path = _shear_path(z)
+    if path == "resident":
+        cluster = _shear_cluster(C, z.element_size())
+        err = _lib().eqt_shear_rotate_resident(
+            code, z.data_ptr(), out.data_ptr(), ab.data_ptr(), B, H, W, C,
+            float(cx), float(cy), zeros, cluster,
+            int(_shear_words(z, out, cluster)), _resident_bytes(H, W), stream)
+    else:
+        scratch = torch.empty((2,) + tuple(z.shape), dtype=torch.float32,
+                              device=z.device)
+        err = _lib().eqt_shear_rotate_residual(
+            code, z.data_ptr(), out.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), ab.data_ptr(), B, H, W, C, float(cx),
+            float(cy), zeros, stream)
     if err != 0:
         raise RuntimeError(f"shear_rotate_residual launch failed: cudaError {err}")
-    _count("shear_rotate_residual", z.dtype)
+    _count("shear_rotate_residual", z.dtype, path)
     return out
 
 

@@ -56,3 +56,23 @@ def test_target_changes_with_its_source_only(csrc_copy):
     after = {n: _build._target(n) for n in _build.SOURCES}
     assert after["knn"] != before["knn"]
     assert all(after[n] == before[n] for n in _build.SOURCES if n != "knn")
+
+
+def test_build_log_is_kept_and_read_back(csrc_copy, tmp_path, monkeypatch):
+    """A library built in an earlier process keeps its compiler output
+    beside it, so `build_logs` (the ptxas report) is there without a
+    rebuild. nvcc is a stand-in script that writes the output file."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\n'
+                    'while [ $# -gt 0 ]; do [ "$1" = -o ] && out=$2; shift; done\n'
+                    'echo "ptxas info    : 0 bytes stack frame"; : > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "build_logs", {})
+    _build.build_all(("select_warp",))
+    target = _build._target("select_warp")
+    assert target.exists() and "stack frame" in target.with_suffix(".log").read_text()
+    monkeypatch.setattr(_build, "build_logs", {})
+    _build.build_all(("select_warp",))  # built already: no nvcc, the log read back
+    assert "stack frame" in _build.build_logs["select_warp"]
