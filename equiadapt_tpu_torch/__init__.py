@@ -18,7 +18,12 @@ Ported so far:
   kernels' backward;
 * the continuous (SO(2) / O(2)) steerable path: steerable network ->
   rotation matrix -> warp, exact (kernel K7) or fast (kernels K5 + K6) ->
-  prediction network -> scalar invert (the same warp kernels);
+  prediction network -> scalar invert (the same warp kernels), and its
+  training: train-mode `NormBatchNorm`, the differentiable fast warp
+  (`warp_center_rotation_fast_diff`: K5 + K6 forward, and on the image's
+  cotangent), the exact warp differentiated through its sample
+  coordinates, and the optimized (self-supervised) steerable canonicalizer
+  with `steerable_optimization_loss`;
 * the SO(3) point-cloud path: VNSmall frame estimation (kNN graph by
   kernel K8) -> Gram-Schmidt -> x @ R^T -> DGCNN (kNN graphs by K8) ->
   point-valued invert y @ R;
@@ -34,9 +39,10 @@ Ported so far:
   network runs fastest on (`to_network_layout`), with the config taxonomy
   and the registries.
 
-The continuous, point-cloud and optimized families are eval only: call
-`.eval()` on them. The discrete family and the ResNets take `training` as
-an argument and ignore the module mode.
+The point-cloud family and the optimized discrete canonicalizer are eval
+only: call `.eval()` on them. The discrete and continuous families, their
+networks and the ResNets take `training` as an argument and ignore the
+module mode.
 """
 
 from equiadapt_tpu_torch.common import (
@@ -58,12 +64,14 @@ from equiadapt_tpu_torch.images import (
     EquivariantNetwork,
     GroupEquivariantImageCanonicalization,
     OptimizedGroupEquivariantImageCanonicalization,
+    OptimizedSteerableImageCanonicalization,
     ResNet18Network,
     SteerableImageCanonicalization,
     SteerableNetwork,
     WideResNet50Network,
     WideResNet101Network,
     optimization_specific_loss,
+    steerable_optimization_loss,
 )
 from equiadapt_tpu_torch.models import DGCNN, PointNet, ResNet18, ResNet50
 from equiadapt_tpu_torch.ops.group_action import (
@@ -134,6 +142,8 @@ __all__ = [
     "WideResNet101Network",
     "ContinuousGroupImageCanonicalization",
     "SteerableImageCanonicalization",
+    "OptimizedSteerableImageCanonicalization",
+    "steerable_optimization_loss",
     "SteerableNetwork",
     "ResNet18",
     "ResNet50",

@@ -1,6 +1,7 @@
 // Per-sample quarter turns of NHWC images, shared by the centered
 // quarter-turn select (K5, shear_rotate.cu) and the channels-last select
-// (K3, select_warp.cu).
+// (K3, select_warp.cu); the exact D4 orbit (K4, orbit.cu) takes its turn
+// map, tile size and chunk shape.
 //
 // out[b, i, j, :] = x_b[si, sj, :], where x_b is sample b of the sample's
 // source image (one source for K5; for K3 the source src_idx[b], clamped, of
@@ -87,6 +88,19 @@ Images<E> images(const void* const* src, int num, const int* src_idx) {
   return im;
 }
 
+// The source pixel (si, sj) of pixel (ii, jj) of rot90^k of an n x n image
+// (k in 0..3); turn_{4-k} is its inverse. Shared with the orbit (K4,
+// orbit.cu).
+__device__ __forceinline__ void quarter_turn(int k, int n, int ii, int jj,
+                                             int& si, int& sj) {
+  switch (k) {
+    case 0: si = ii; sj = jj; break;
+    case 1: si = jj; sj = n - 1 - ii; break;
+    case 2: si = n - 1 - ii; sj = n - 1 - jj; break;
+    default: si = n - 1 - jj; sj = ii; break;
+  }
+}
+
 // The index map of one sample: output pixel (i, j) reads source pixel
 // (si, sj) = turn_k(clamp(i + sy_k), clamp(j + sx_k)), or is zero-filled.
 struct QuarterTurn {
@@ -98,12 +112,7 @@ struct QuarterTurn {
 
   // (si, sj) of the shifted, in-range pixel (ii, jj)
   __device__ __forceinline__ void turn(int ii, int jj, int& si, int& sj) const {
-    switch (k) {
-      case 0: si = ii; sj = jj; break;
-      case 1: si = jj; sj = n - 1 - ii; break;
-      case 2: si = n - 1 - ii; sj = n - 1 - jj; break;
-      default: si = n - 1 - jj; sj = ii; break;
-    }
+    quarter_turn(k, n, ii, jj, si, sj);
   }
 
   // false: the pixel is zero-filled ("zeros" and the shift leaves the image)

@@ -5,8 +5,10 @@ from equiadapt_tpu_torch.images.canonicalization import (
     DiscreteGroupImageCanonicalization,
     GroupEquivariantImageCanonicalization,
     OptimizedGroupEquivariantImageCanonicalization,
+    OptimizedSteerableImageCanonicalization,
     SteerableImageCanonicalization,
     optimization_specific_loss,
+    steerable_optimization_loss,
 )
 from equiadapt_tpu_torch.images.networks import (
     ConvNetwork,
@@ -23,7 +25,9 @@ __all__ = [
     "GroupEquivariantImageCanonicalization",
     "OptimizedGroupEquivariantImageCanonicalization",
     "SteerableImageCanonicalization",
+    "OptimizedSteerableImageCanonicalization",
     "optimization_specific_loss",
+    "steerable_optimization_loss",
     "ConvNetwork",
     "EquivariantNetwork",
     "ResNet18Network",

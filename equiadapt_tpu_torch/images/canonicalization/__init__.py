@@ -2,7 +2,9 @@
 
 from equiadapt_tpu_torch.images.canonicalization.continuous_group import (
     ContinuousGroupImageCanonicalization,
+    OptimizedSteerableImageCanonicalization,
     SteerableImageCanonicalization,
+    steerable_optimization_loss,
 )
 from equiadapt_tpu_torch.images.canonicalization.discrete_group import (
     DiscreteGroupImageCanonicalization,
@@ -14,6 +16,8 @@ from equiadapt_tpu_torch.images.canonicalization.discrete_group import (
 __all__ = [
     "ContinuousGroupImageCanonicalization",
     "SteerableImageCanonicalization",
+    "OptimizedSteerableImageCanonicalization",
+    "steerable_optimization_loss",
     "DiscreteGroupImageCanonicalization",
     "GroupEquivariantImageCanonicalization",
     "OptimizedGroupEquivariantImageCanonicalization",

@@ -9,16 +9,22 @@ canonicalizers. Submodules carry the names Flax gives their counterparts
 Flax infers a layer's input width at the first call; torch fixes it at
 construction, so `ConvNetwork` takes the (H, W) of its input images
 (`input_size`), which sets the width of its head.
+
+`training` is an argument, as in the JAX package, and the module mode is
+not read: in training the BatchNorms normalize with batch statistics and
+update their running ones with Flax's semantics, and `ConvNetwork`'s
+dropout draws its mask from `generator` (`common/layers.py`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from equiadapt_tpu_torch.common.layers import BatchNorm, Dropout
 from equiadapt_tpu_torch.models.resnet import ResNet18, WideResNet50, WideResNet101
 
 Tensor = torch.Tensor
@@ -58,8 +64,7 @@ class ConvNetwork(nn.Module):
                 pad = 1
             setattr(self, f"Conv_{i}",
                     nn.Conv2d(c_in, width, k, 2, pad, device=device))
-            setattr(self, f"BatchNorm_{i}",
-                    nn.BatchNorm2d(width, eps=1e-5, momentum=0.01, device=device))
+            setattr(self, f"BatchNorm_{i}", BatchNorm(width, device=device))
             h = (h + 2 * pad - k) // 2 + 1
             w = (w + 2 * pad - k) // 2 + 1
             c_in = width
@@ -67,20 +72,23 @@ class ConvNetwork(nn.Module):
             raise ValueError(f"input_size {input_size} is too small for "
                              f"{num_layers} layers of kernel {k}")
         features = width * h * w
-        setattr(self, f"BatchNorm_{num_layers}",
-                nn.BatchNorm1d(features, eps=1e-5, momentum=0.01, device=device))
-        self.Dropout_0 = nn.Dropout(0.5)
+        setattr(self, f"BatchNorm_{num_layers}", BatchNorm(features, device=device))
+        self.Dropout_0 = Dropout(0.5)
         self.Dense_0 = nn.Linear(features, out_vector_size, device=device)
         self.to(dtype)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        """NHWC images -> (B, out_vector_size); `generator` draws the
+        dropout mask in training (on x's device)."""
         y = x.permute(0, 3, 1, 2).to(self.dtype).contiguous()
         for i in range(self.num_layers):
             y = getattr(self, f"Conv_{i}")(y)
-            y = F.gelu(getattr(self, f"BatchNorm_{i}")(y), approximate="tanh")
+            y = F.gelu(getattr(self, f"BatchNorm_{i}")(y, training),
+                       approximate="tanh")
         y = y.permute(0, 2, 3, 1).reshape(y.shape[0], -1)  # NHWC flatten
-        y = getattr(self, f"BatchNorm_{self.num_layers}")(y)
-        y = torch.relu(self.Dropout_0(y))
+        y = getattr(self, f"BatchNorm_{self.num_layers}")(y, training)
+        y = torch.relu(self.Dropout_0(y, training, generator))
         return self.Dense_0(y)
 
 
@@ -97,8 +105,9 @@ class _ResNetHead(nn.Module):
         self.Dense_0 = nn.Linear(self.features, out_vector_size, device=device,
                                  dtype=dtype)
 
-    def forward(self, x: Tensor) -> Tensor:
-        return self.Dense_0(self.ResNet_0(x))
+    def forward(self, x: Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        return self.Dense_0(self.ResNet_0(x, training=training))
 
 
 class ResNet18Network(_ResNetHead):

@@ -22,7 +22,9 @@ Dtypes follow the JAX module: a convolution runs in its input's dtype
 which promotes a bf16 input to fp32. So with bf16 input only the first
 convolution runs in bf16, and the output vectors are fp32.
 
-Training (`NormBatchNorm` batch statistics) is not ported and raises.
+`training` is an argument, as in the JAX module and the port's discrete
+family; the torch module mode is not read. In training `NormBatchNorm`
+normalizes by the batch statistics and updates its running ones.
 """
 
 from __future__ import annotations
@@ -212,10 +214,17 @@ class NormNonlinearity(nn.Module):
 
 
 class NormBatchNorm(nn.Module):
-    """Each field times `scale` over the running RMS of its norm:
-    z * scale / sqrt(norm_sq + eps), `scale` (params) and `norm_sq`
+    """Each field times `scale` over the RMS of its norm:
+    z * scale / sqrt(s + eps), `scale` (params) and the running `norm_sq`
     (batch_stats) of shape (fields,). Not a `_BatchNorm`: its leaves are
-    its own. Eval only. NCHW."""
+    its own. NCHW.
+
+    Eval: s = norm_sq. Training: s is the batch statistic, the mean over
+    (B, H, W) of each field's sum of squares (taken in x's dtype, as the JAX
+    module), and the running statistic moves by Flax's convention,
+    norm_sq <- 0.9 norm_sq + 0.1 s (torch's momentum would be 0.1)."""
+
+    momentum = 0.9
 
     def __init__(self, orders: Sequence[int], device="cuda"):
         super().__init__()
@@ -228,16 +237,20 @@ class NormBatchNorm(nn.Module):
         self.register_buffer("_field", torch.tensor(field, device=device),
                              persistent=False)
 
-    def forward(self, x: Tensor) -> Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "NormBatchNorm training (batch statistics) is not ported yet; "
-                "call .eval()"
-            )
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         shape = (1, -1, 1, 1)
         scale = self.scale[self._field].reshape(shape)
-        denom = torch.sqrt(self.norm_sq[self._field] + _EPS).reshape(shape)
-        return x * scale / denom
+        if not training:
+            denom = torch.sqrt(self.norm_sq[self._field] + _EPS).reshape(shape)
+            return x * scale / denom
+        B, _, H, W = x.shape
+        per_field = x.new_zeros(B, len(self.orders), H, W).index_add_(
+            1, self._field, x * x)
+        batch = per_field.mean(dim=(0, 2, 3))
+        with torch.no_grad():
+            self.norm_sq.mul_(self.momentum).add_(
+                batch.float(), alpha=1.0 - self.momentum)
+        return x * scale / torch.sqrt(batch[self._field] + _EPS).reshape(shape)
 
 
 class SteerableNetwork(nn.Module):
@@ -266,11 +279,11 @@ class SteerableNetwork(nn.Module):
         self.add_module(f"SteerableConv_{num_layers}", SteerableConv(
             cur, (1,) * num_vectors, kernel_size, device=device, generator=generator))
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         h = x.permute(0, 3, 1, 2)
         for i in range(self.num_layers):
             h = getattr(self, f"SteerableConv_{i}")(h)
-            h = getattr(self, f"NormBatchNorm_{i}")(h)
+            h = getattr(self, f"NormBatchNorm_{i}")(h, training)
             h = getattr(self, f"NormNonlinearity_{i}")(h)
         h = getattr(self, f"SteerableConv_{self.num_layers}")(h)
         v = h.mean(dim=(2, 3))

@@ -27,7 +27,7 @@ from typing import Dict
 import torch
 
 from equiadapt_tpu_torch.ops.kernels import _build
-from equiadapt_tpu_torch.ops.warp import _dst_grid, bilinear_sample
+from equiadapt_tpu_torch.ops.warp import _dst_grid, _inverse_2x2, bilinear_sample
 
 Tensor = torch.Tensor
 
@@ -35,8 +35,9 @@ __all__ = ["warp_rotate_center_exact", "launches", "reset_launches"]
 
 _KERNELS = "the exact-warp kernel (K7)"
 _DIFFERENTIABLE = (
-    "the differentiable exact warp (`_warp_center_affine`, autograd through "
-    "the sample coordinates) comes with continuous training, ROADMAP.md item 11")
+    "differentiate the exact warp through its plain version "
+    "`_warp_center_affine` (autograd through the sample coordinates), the "
+    "route continuous training takes")
 
 # kernel launches by dtype, e.g. launches["warp_rotate_center_exact/float32"]
 launches: Dict[str, int] = {}
@@ -59,11 +60,7 @@ def _lib() -> ctypes.CDLL:
 def _inverse_coefficients(R: Tensor, dtype: torch.dtype) -> Tensor:
     """(B, 4) [i00, i01, i10, i11] of R^{-1} by the adjugate over det, in
     `dtype`."""
-    Rm = R.to(dtype)
-    r00, r01 = Rm[:, 0, 0], Rm[:, 0, 1]
-    r10, r11 = Rm[:, 1, 0], Rm[:, 1, 1]
-    det = r00 * r11 - r01 * r10
-    return torch.stack([r11 / det, -r01 / det, -r10 / det, r00 / det], dim=-1)
+    return torch.stack(_inverse_2x2(R.to(dtype)), dim=-1)
 
 
 def _warp_center_affine(x: Tensor, R: Tensor, padding_mode: str) -> Tensor:

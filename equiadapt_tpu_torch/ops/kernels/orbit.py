@@ -16,7 +16,10 @@ CUDA tensors, takes the plain PyTorch version `rot90_flip_orbit_plain` (a
 stack of `torch.rot90` / `torch.flip`, the JAX `_orbit_xla`) for CPU
 tensors, and raises for anything else. Both are pure data movement and
 bit-identical. The JAX package's `use_pallas` switch has no counterpart: a
-CUDA tensor always takes the kernel.
+CUDA tensor always takes the kernel. The kernel has three launch paths,
+chosen by shape and alignment (`_orbit_path`): 16-byte words of a pixel,
+32 x 32 tiles with C a template parameter (C <= 4), and tiles in 16-byte
+chunks of a pixel (other C).
 
 `materialize_orbit` is the entry point of the optimized canonicalizer and of
 `group_inference`: the kernel when every element is a quarter turn of a
@@ -24,7 +27,8 @@ square image, per-element static warps (`ops/warp._residual_rotate`) and
 `hflip` otherwise.
 
 `launches` counts kernel launches by dtype, e.g.
-`launches["rot90_flip_orbit/float32"]`.
+`launches["rot90_flip_orbit/float32"]`; `path_launches` counts them again
+by launch path, e.g. `path_launches["rot90_flip_orbit/float32/tile"]`.
 
 The kernel has no backward: under grad mode, an input that requires grad
 raises on the card (`_build.refuse_grad`) instead of returning a result
@@ -45,7 +49,7 @@ from equiadapt_tpu_torch.ops.warp import _residual_rotate, hflip
 Tensor = torch.Tensor
 
 __all__ = ["rot90_flip_orbit", "rot90_flip_orbit_plain", "materialize_orbit",
-           "launches", "reset_launches", "MAX_B", "MAX_N"]
+           "launches", "path_launches", "reset_launches", "MAX_B", "MAX_N"]
 
 _KERNELS = "the orbit kernel"
 
@@ -54,10 +58,15 @@ MAX_B, MAX_N = 65535, 65535
 
 # kernel launches by dtype, e.g. launches["rot90_flip_orbit/bfloat16"]
 launches: Dict[str, int] = {}
+# the same launches by path, e.g. path_launches["rot90_flip_orbit/bfloat16/word"]
+path_launches: Dict[str, int] = {}
+# the C interface's path codes
+_PATH_CODES = {"tile": 0, "word": 1, "chunk": 2}
 
 
 def reset_launches() -> None:
     launches.clear()
+    path_launches.clear()
 
 
 def _lib() -> ctypes.CDLL:
@@ -65,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.eqt_rot90_flip_orbit
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, vp, vp, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [ci, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     return lib
 
@@ -116,6 +125,24 @@ def rot90_flip_orbit(x: Tensor, num_rotations: int = 4,
     return _launch(x.contiguous(), ks, flips)
 
 
+def _orbit_path(x: Tensor, out: Tensor) -> str:
+    """K4's launch path, as K3's (`select_warp._nhwc_path`): "word"
+    (16-byte words of a pixel) when a pixel is whole words and x and the
+    output start on a 16-byte boundary; otherwise "tile" (32 x 32 tiles, C a
+    template parameter) for C <= 4 and "chunk" (tiles in 16-byte chunks of a
+    pixel) for other C."""
+    if _build.whole_words(x, out):
+        return "word"
+    return "tile" if x.shape[-1] <= 4 else "chunk"
+
+
+def _table(ks, flips) -> int:
+    """The element table packed three bits an element: k_g in bits 3g and
+    3g + 1, f_g in bit 3g + 2."""
+    return sum((k | (int(f) << 2)) << (3 * g)
+               for g, (k, f) in enumerate(zip(ks, flips)))
+
+
 def _launch(x: Tensor, ks, flips) -> Tensor:
     B, N, _, C = x.shape
     if x.dtype not in _build.DTYPE_CODES:
@@ -124,17 +151,18 @@ def _launch(x: Tensor, ks, flips) -> Tensor:
         raise ValueError(
             f"{_KERNELS} takes 1 <= B <= {MAX_B} and N <= {MAX_N}; got "
             f"(B, N, N, C) = {tuple(x.shape)}")
-    table = sum((k | (int(f) << 2)) << (3 * g)
-                for g, (k, f) in enumerate(zip(ks, flips)))
     out = torch.empty((len(ks), B, N, N, C), dtype=x.dtype, device=x.device)
+    path = _orbit_path(x, out)
     err = _lib().eqt_rot90_flip_orbit(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), B, N, C,
-        len(ks), table, torch.cuda.current_stream(x.device).cuda_stream,
+        len(ks), _table(ks, flips), _PATH_CODES[path],
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"rot90_flip_orbit launch failed: cudaError {err}")
     key = f"rot90_flip_orbit/{str(x.dtype).removeprefix('torch.')}"
     launches[key] = launches.get(key, 0) + 1
+    path_launches[f"{key}/{path}"] = path_launches.get(f"{key}/{path}", 0) + 1
     return out
 
 

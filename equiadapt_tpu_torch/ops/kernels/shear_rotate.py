@@ -27,8 +27,10 @@ by dtype; `path_launches` counts them again by launch path.
 
 Neither kernel has a backward: under grad mode, an input that requires grad
 raises on the card (`_build.refuse_grad`) instead of returning a result
-without a `grad_fn`. The differentiable fast warp is the JAX package's
-`warp_center_rotation_fast_diff`, still to be ported.
+without a `grad_fn`. The differentiable fast warp is
+`ops.warp.warp_center_rotation_fast_diff`, an autograd Function that calls
+`warp_rotate_center_fast` with grad mode off and gives the JAX package's
+closed-form backward.
 
 The TPU kernel's roll-depth bound (`_max_shift`) has no counterpart: the
 CUDA kernel addresses each tap directly and clamps it.
@@ -60,8 +62,9 @@ __all__ = [
 _PADDING = ("border", "zeros")
 _KERNELS = "shear-rotate kernels"
 _DIFFERENTIABLE = (
-    "the differentiable fast warp (`warp_center_rotation_fast_diff`) comes "
-    "with continuous training, ROADMAP.md item 11")
+    "differentiate the fast warp through "
+    "`ops.warp.warp_center_rotation_fast_diff` (K5 and K6 forward, a "
+    "closed-form backward), the route continuous training takes")
 
 # kernel launches per wrapper and dtype, e.g. launches["shear_rotate_residual/bfloat16"]
 launches: Dict[str, int] = {}

@@ -1,8 +1,8 @@
-"""Image warps of the discrete canonicalizer's eval path, in PyTorch.
+"""Image warps of the canonicalizers, in PyTorch.
 
-Counterpart of `equiadapt_tpu/ops/warp.py` (main-path subset). Public
-functions keep the JAX package's NHWC layout; the `_from_nchw` residual
-warps take and give (B, C, H, W), the layout the select kernels read.
+Counterpart of `equiadapt_tpu/ops/warp.py`. Public functions keep the JAX
+package's NHWC layout; the `_from_nchw` residual warps take and give
+(B, C, H, W), the layout the select kernels read.
 
 * `_static_rotate*` is the exact-mode residual source: four bilinear taps per
   pixel whose indices and weights are computed once per (H, W, angle, mode)
@@ -20,6 +20,14 @@ warps take and give (B, C, H, W), the layout the select kernels read.
   coordinates (the JAX taps form; its "slab" form is a TPU index-traffic
   variant with the same values and has no counterpart here). It is the
   plain version of kernel K7 and the reference of K6's residual bounds.
+  Autograd differentiates it in the image and in the sample coordinates.
+* `rotate` (kornia's per-sample rotation), `warp_affine` (kornia's 2 x 3
+  forward map) and `affine_grid_sample` (`F.affine_grid` + `F.grid_sample`,
+  align_corners=False) are coordinate maps onto `bilinear_sample`, so they
+  are differentiable in the image and in their angles or matrices.
+* `warp_center_rotation_fast_diff` is the differentiable fast warp of
+  continuous training: forward K5 then K6 (`warp_rotate_center_fast`), and
+  the JAX package's closed-form backward (`_fast_diff_warp_bwd`).
 """
 
 from __future__ import annotations
@@ -43,6 +51,10 @@ __all__ = [
     "rotate_select_fast",
     "rotate_discrete",
     "bilinear_sample",
+    "rotate",
+    "warp_affine",
+    "affine_grid_sample",
+    "warp_center_rotation_fast_diff",
     "center_crop",
     "resize",
     "crop_and_resize",
@@ -448,3 +460,153 @@ def _dst_grid(B: int, Ho: int, Wo: int, dtype: torch.dtype,
     xs = torch.arange(Wo, dtype=dtype, device=device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return gx[None].expand(B, Ho, Wo), gy[None].expand(B, Ho, Wo)
+
+
+def rotate(x: Tensor, angle_deg, padding_mode: str = "zeros",
+           center: Optional[Tuple[float, float]] = None) -> Tensor:
+    """Per-sample rotation of an NHWC batch, kornia.geometry.rotate
+    semantics: dst(xd, yd) = src(a (xd - cx) - b (yd - cy) + cx,
+    b (xd - cx) + a (yd - cy) + cy), a = cos, b = sin of `angle_deg` ((B,)
+    or a scalar, degrees), centre ((W-1)/2, (H-1)/2) unless `center`
+    (cx, cy) is given."""
+    B, H, W, _ = x.shape
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    angle = torch.as_tensor(angle_deg, device=x.device).to(dtype).broadcast_to((B,))
+    rad = angle * (math.pi / 180.0)
+    a = torch.cos(rad)[:, None, None]
+    b = torch.sin(rad)[:, None, None]
+    cx, cy = ((W - 1) / 2.0, (H - 1) / 2.0) if center is None else center
+    gx, gy = _dst_grid(B, H, W, dtype, x.device)
+    dx = gx - cx
+    dy = gy - cy
+    src_x = a * dx - b * dy + cx
+    src_y = b * dx + a * dy + cy
+    return bilinear_sample(x, src_x, src_y, padding_mode=padding_mode)
+
+
+def warp_affine(x: Tensor, affine: Tensor,
+                dsize: Optional[Tuple[int, int]] = None,
+                padding_mode: str = "zeros") -> Tensor:
+    """Per-sample affine warp, kornia.geometry.warp_affine semantics:
+    `affine` (B, 2, 3) is the forward map [R | t] in pixel coordinates with
+    rows (x, y); sampling inverts it, src = R^{-1}(dst - t). `dsize` is the
+    output (H, W), the input's by default."""
+    B, H, W, _ = x.shape
+    Ho, Wo = dsize if dsize is not None else (H, W)
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    A = affine.to(dtype)
+    r00, r01, t0 = A[:, 0, 0], A[:, 0, 1], A[:, 0, 2]
+    r10, r11, t1 = A[:, 1, 0], A[:, 1, 1], A[:, 1, 2]
+    inv_det = 1.0 / (r00 * r11 - r01 * r10)
+    i00, i01 = r11 * inv_det, -r01 * inv_det
+    i10, i11 = -r10 * inv_det, r00 * inv_det
+    gx, gy = _dst_grid(B, Ho, Wo, dtype, x.device)
+    ux = gx - t0[:, None, None]
+    uy = gy - t1[:, None, None]
+    src_x = i00[:, None, None] * ux + i01[:, None, None] * uy
+    src_y = i10[:, None, None] * ux + i11[:, None, None] * uy
+    return bilinear_sample(x, src_x, src_y, padding_mode=padding_mode)
+
+
+def affine_grid_sample(x: Tensor, theta: Tensor,
+                       padding_mode: str = "zeros") -> Tensor:
+    """`F.affine_grid` + `F.grid_sample` (align_corners=False) on an NHWC
+    batch: `theta` (B, 2, 3) maps output normalized coordinates to input
+    normalized coordinates (torch's convention); a normalized coordinate g
+    is the pixel ((g + 1) size - 1) / 2."""
+    B, H, W, _ = x.shape
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    th = theta.to(dtype)
+    gx, gy = _dst_grid(B, H, W, dtype, x.device)
+    nx = (2.0 * gx + 1.0) / W - 1.0
+    ny = (2.0 * gy + 1.0) / H - 1.0
+    t = [[th[:, r, c, None, None] for c in range(3)] for r in range(2)]
+    sx_n = t[0][0] * nx + t[0][1] * ny + t[0][2]
+    sy_n = t[1][0] * nx + t[1][1] * ny + t[1][2]
+    src_x = ((sx_n + 1.0) * W - 1.0) / 2.0
+    src_y = ((sy_n + 1.0) * H - 1.0) / 2.0
+    return bilinear_sample(x, src_x, src_y, padding_mode=padding_mode)
+
+
+def _inverse_2x2(Rm: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(i00, i01, i10, i11) of Rm^{-1}, (B, 2, 2), by the adjugate over det."""
+    det = Rm[:, 0, 0] * Rm[:, 1, 1] - Rm[:, 0, 1] * Rm[:, 1, 0]
+    return (Rm[:, 1, 1] / det, -Rm[:, 0, 1] / det, -Rm[:, 1, 0] / det,
+            Rm[:, 0, 0] / det)
+
+
+def _fast_diff_warp_rbar(R: Tensor, out: Tensor, g: Tensor) -> Tensor:
+    """The rotation's cotangent of the fast warp out(p) = x(R^{-1}(p - c) + c),
+    c = (W//2, H//2), as the JAX package's `_fast_diff_warp_bwd` computes it:
+    Rbar[i, j] = -sum_p sum_c g(p) (grad out)_i(p) u_j(p), u = R^{-1}(p - c),
+    grad out by central differences of the forward output (one-sided at the
+    edges, `jnp.gradient`), in promote(out.dtype, fp32), cast to R's dtype."""
+    B, H, W, _ = out.shape
+    cx, cy = W // 2, H // 2
+    dt = torch.promote_types(out.dtype, torch.float32)
+    gf = g.to(dt)
+    outf = out.to(dt)
+    d_dy, d_dx = torch.gradient(outf, dim=(1, 2))
+    i00, i01, i10, i11 = (t[:, None, None] for t in _inverse_2x2(R.to(dt)))
+    gx, gy = _dst_grid(B, H, W, dt, out.device)
+    dx = gx - cx
+    dy = gy - cy
+    u1 = i00 * dx + i01 * dy
+    u2 = i10 * dx + i11 * dy
+    gdx = torch.sum(gf * d_dx, dim=-1)
+    gdy = torch.sum(gf * d_dy, dim=-1)
+    rbar = -torch.stack([
+        torch.stack([torch.sum(gdx * u1, (1, 2)), torch.sum(gdx * u2, (1, 2))], -1),
+        torch.stack([torch.sum(gdy * u1, (1, 2)), torch.sum(gdy * u2, (1, 2))], -1),
+    ], dim=-2)
+    return rbar.to(R.dtype)
+
+
+def _fast_diff_warp_xbar(R: Tensor, g: Tensor) -> Tensor:
+    """The image's cotangent of the fast warp: the same fast warp of the
+    output cotangent by R^{-1} with zeros fill (the JAX package's "sample ~
+    splat" approximation of the bilinear adjoint; no transpose kernel), K5
+    then K6 on the card."""
+    from equiadapt_tpu_torch.ops.kernels.shear_rotate import warp_rotate_center_fast
+
+    dt = torch.promote_types(g.dtype, torch.float32)
+    i00, i01, i10, i11 = _inverse_2x2(R.to(dt))
+    Rinv = torch.stack([torch.stack([i00, i01], -1),
+                        torch.stack([i10, i11], -1)], dim=-2).to(R.dtype)
+    return warp_rotate_center_fast(g.contiguous(), Rinv, "zeros")
+
+
+class _FastDiffWarp(torch.autograd.Function):
+    """The fast warp with the JAX package's closed-form backward. Forward
+    runs with grad mode off, so the kernels' gradient guard does not fire
+    here."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, R: Tensor, padding_mode: str) -> Tensor:
+        from equiadapt_tpu_torch.ops.kernels.shear_rotate import warp_rotate_center_fast
+
+        out = warp_rotate_center_fast(x.contiguous(), R, padding_mode)
+        ctx.save_for_backward(R, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        R, out = ctx.saved_tensors
+        xbar = _fast_diff_warp_xbar(R, g) if ctx.needs_input_grad[0] else None
+        rbar = _fast_diff_warp_rbar(R, out, g) if ctx.needs_input_grad[1] else None
+        return xbar, rbar, None
+
+
+def warp_center_rotation_fast_diff(x: Tensor, R: Tensor,
+                                   padding_mode: str = "border") -> Tensor:
+    """Differentiable fast-mode centred rotation warp of square NHWC images,
+    out(p) = x(R^{-1}(p - c) + c), c = (W//2, H//2).
+
+    Forward: `warp_rotate_center_fast` (K5 then K6 on the card, their plain
+    versions on the CPU). Backward, as the JAX package's: the rotation's
+    cotangent in closed form, -(grad out)_i u_j summed against the output
+    cotangent (`_fast_diff_warp_rbar`), and the image's cotangent as the
+    fast warp of the output cotangent by R^{-1} (`_fast_diff_warp_xbar`),
+    only where the image needs a gradient. Neither is autograd through the
+    forward, and the image's is not an exact adjoint."""
+    return _FastDiffWarp.apply(x, R, padding_mode)

@@ -41,6 +41,9 @@ from equiadapt_tpu_torch.common.info import (
     identity_metric,
     prior_regularization_loss,
 )
+from equiadapt_tpu_torch.images.canonicalization.continuous_group import (
+    steerable_optimization_loss,
+)
 from equiadapt_tpu_torch.images.canonicalization.discrete_group import (
     optimization_specific_loss,
 )
@@ -136,9 +139,9 @@ def classification_loss(
             loss = loss + group_contrast_weight * opt
             metrics["loss/group_contrast"] = opt
         if group_contrast_weight and canonicalization_type == "opt_steerable":
-            raise NotImplementedError(
-                "steerable_optimization_loss (the optimized steerable "
-                "canonicalizer) is not ported yet (ROADMAP.md item 11)")
+            opt = steerable_optimization_loss(info)
+            loss = loss + group_contrast_weight * opt
+            metrics["loss/group_contrast"] = opt
     metrics["metric/acc"] = torch.mean(
         (torch.argmax(logits, -1) == labels).float())
     metrics["loss/total"] = loss

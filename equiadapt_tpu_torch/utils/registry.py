@@ -19,6 +19,7 @@ from torch import nn
 
 from equiadapt_tpu_torch.common.base import IdentityCanonicalization
 from equiadapt_tpu_torch.images.canonicalization.continuous_group import (
+    OptimizedSteerableImageCanonicalization,
     SteerableImageCanonicalization,
 )
 from equiadapt_tpu_torch.images.canonicalization.discrete_group import (
@@ -153,7 +154,10 @@ def get_image_canonicalizer(
             group_type=h.group_type, **discrete, **common
         )
     if t == "opt_steerable":
-        _not_ported("OptimizedSteerableImageCanonicalization", 11)
+        return OptimizedSteerableImageCanonicalization(
+            group_type=h.group_type, artifact_err_wt=cfg.artifact_err_wt,
+            **discrete, **common,
+        )
     raise ValueError(f"{t} needs a canonicalization network implementation")
 
 

@@ -170,7 +170,6 @@ def test_registry_prediction_and_pointcloud_factories():
 @pytest.mark.parametrize("override,item", [
     ("canonicalization.network_type=equivariant_wrn", "item 10"),
     ("canonicalization.network_type=custom", "item 10"),
-    ("canonicalization.canonicalization_type=opt_steerable", "item 11"),
     ("prediction.architecture=vit", "item 14"),
 ])
 def test_registry_names_the_roadmap_item_of_what_is_not_ported(override, item):
@@ -178,12 +177,6 @@ def test_registry_names_the_roadmap_item_of_what_is_not_ported(override, item):
     with pytest.raises(NotImplementedError, match=item):
         if override.startswith("prediction"):
             treg.get_image_prediction_network(cfg.prediction, 10, True, device="cpu")
-        elif "opt_steerable" in override:
-            cfg = cfg.override("canonicalization.network_type=cnn")
-            net = treg.get_image_canonicalization_network(
-                cfg.canonicalization, (32, 32, 3), device="cpu")
-            treg.get_image_canonicalizer(cfg.canonicalization, net, (32, 32, 3),
-                                         device="cpu")
         else:
             treg.get_image_canonicalization_network(cfg.canonicalization,
                                                     (32, 32, 3), device="cpu")
@@ -285,10 +278,18 @@ def test_pipeline_guards():
                                       torch.ones(2, 4, 4, 3))
     logits = torch.randn(4, 10)
     labels = torch.zeros(4, dtype=torch.int64)
-    info = tp.DiscreteCanonicalizationInfo(torch.zeros(4, 4), torch.zeros(4, 4), None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcls.classification_loss(logits, labels, info, group_contrast_weight=1.0,
-                                 canonicalization_type="opt_steerable")
+    # the opt_steerable branch adds steerable_optimization_loss (ported with
+    # the continuous family's training)
+    rep = torch.eye(2).repeat(4, 1, 1)
+    info = tp.ContinuousCanonicalizationInfo(
+        matrix_rep=rep, element=None,
+        extras={"matrix_rep_augmented": rep + 0.5, "matrix_rep_augmented_gt": rep})
+    _, metrics = tcls.classification_loss(
+        logits, labels, info, prior_weight=0.0, group_contrast_weight=2.0,
+        canonicalization_type="opt_steerable")
+    assert metrics["loss/group_contrast"].item() == pytest.approx(0.25)
+    assert metrics["loss/total"].item() == pytest.approx(
+        metrics["loss/task"].item() + 0.5)
     loss, metrics = tcls.classification_loss(logits, labels,
                                              tp.IdentityCanonicalizationInfo())
     assert "loss/prior" not in metrics and metrics["loss/finite"].item() == 1.0

@@ -92,12 +92,13 @@ def _k7(x, extra):
     return tbw.warp_rotate_center_exact(x, extra, "zeros")
 
 
-# kernel -> (module, launch attribute, call, extra input, item the message names)
+# kernel -> (module, launch attribute, call, extra input, the differentiable
+# route the message names)
 GUARDED = {
     "K4": (torbit, "_launch", _k4, None, "item 10"),
-    "K5": (tsr, "_launch_select", _k5, None, "item 11"),
-    "K6": (tsr, "_launch_shear", _k6, "r", "item 11"),
-    "K7": (tbw, "_launch", _k7, "R", "item 11"),
+    "K5": (tsr, "_launch_select", _k5, None, "warp_center_rotation_fast_diff"),
+    "K6": (tsr, "_launch_shear", _k6, "r", "warp_center_rotation_fast_diff"),
+    "K7": (tbw, "_launch", _k7, "R", "_warp_center_affine"),
 }
 
 
@@ -151,7 +152,8 @@ def test_fast_warp_checks_x_and_R_before_the_split(on_card, monkeypatch):
     monkeypatch.setattr(tsr, "_launch_shear", shear)
     x = torch.rand(2, 8, 8, 3)
     R = torch.from_numpy(_rotations([0.3, 2.0])).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward on the card.*item 11"):
+    with pytest.raises(RuntimeError,
+                       match="no backward on the card.*warp_center_rotation_fast_diff"):
         tsr.warp_rotate_center_fast(x, R)
     assert select.calls == shear.calls == 0
     with torch.no_grad():

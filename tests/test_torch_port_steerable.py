@@ -275,21 +275,22 @@ def test_slice_matches_jax(group_type, warp_mode, bf16):
 
 
 def test_training_and_vector_invert_raise():
+    """`training` is an argument and the module mode is not read (training
+    is ported); the "vector" invert raises, as in JAX."""
     canon = tp.SteerableImageCanonicalization(
         tp.SteerableNetwork(**NET, device="cpu"), **_canon_kwargs("rotation", "exact", False))
-    x = torch.zeros(2, IMG, IMG, 3)
-    with pytest.raises(NotImplementedError, match="eval"):
-        canon.canonicalize(x)  # a fresh module is in train mode
-    canon.eval()
-    with pytest.raises(NotImplementedError):
-        canon.canonicalize(x, training=True)
-    _, info = canon.canonicalize(torch.rand(2, IMG, IMG, 3))
+    x = torch.rand(2, IMG, IMG, 3)
+    xc_train_mode, _ = canon.canonicalize(x)  # a fresh module is in train mode
+    xc_eval, info = canon.eval().canonicalize(x)
+    assert torch.equal(xc_train_mode, xc_eval)
+    xc_t, info_t = canon.canonicalize(x, training=True)  # batch statistics
+    assert xc_t.shape == x.shape and bool(torch.isfinite(xc_t).all())
     with pytest.raises(NotImplementedError):
         canon.invert_canonicalization(info, x)  # "vector", as in JAX
     with pytest.raises(ValueError):
         canon.invert_canonicalization(info, x, induced_rep_type="regular")
-    with pytest.raises(NotImplementedError):
-        canon.canonicalization_network.train()(x)
+    net = canon.canonicalization_network
+    assert torch.equal(net.train()(x), net.eval()(x))
 
 
 def test_no_silent_cpu():
