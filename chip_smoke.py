@@ -181,11 +181,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    opt_steerable.yaml's canonicalizer (ConvNetwork 5x5, 32 channels, 2
    layers, a 4-vector; crop 0.9, resize 96) on 128 images: canonicalize
    with training=True and the backward of `steerable_optimization_loss`
-   plus the prior, finite, timed.
+   plus the prior, finite, timed;
+18. the n-body family (no kernel of the port on its path; no select,
+   shear, warp, kNN or orbit launch, asserted): bench.py's canonicalize
+   (VNDeepSets hidden 16, 4 layers, "pv", 512 graphs of 5 bodies, fp32):
+   SE(3) invariance within 1e-3, the invert within 1e-4, the first 8
+   graphs within 1e-4 of the CPU run (each bar widened per graph by its
+   frame's conditioning), ms (median of 5 windows), graphs/s,
+   launches and device time of one call; examples/nbody/configs/
+   default.yaml's trainer (VNDeepSets 16 x 4 with dropout 0.5, GNN 32 x 4,
+   batch 100, AdamW(1e-3, wd 1e-12)) on data simulated on the card at the
+   CLI's sizes (512 + 128 graphs, 5000 leaps; the simulation timed): the
+   loss over 20 steps (finite, falling), ms per step, steps/s, the steps'
+   peak memory, launches and device time of a step, one step at dropout 0
+   against the CPU (bars as phase 17's: at least three times the CPU's own
+   spread), one step each of the Transformer and VN-DeepSets predictors; the
+   CLI (`equiadapt_tpu_torch.cli.nbody_train`): one epoch with a checkpoint
+   in a temporary directory, then test mode from it, its test/mse equal
+   (1e-6) to the trained state's on the same split.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
-nvidia-smi line and the `kernels` JSON line.
+n-body JSON line, the nvidia-smi line and the `kernels` JSON line.
 """
 
 from __future__ import annotations
@@ -273,6 +290,11 @@ ORBIT_SHAPES = {"group_inference": (GI_B, IMAGE, 3, 4, False, 1.0),
 # timed windows behind each kernel time of the `kernels` line (the median,
 # with the min and max beside it)
 WINDOWS = 5
+# n-body: bench.py:380-410's canonicalize preset (VNDeepSets hidden 16, 4
+# layers, "pv"; 512 graphs of 5 bodies) and the trainer and CLI of
+# examples/nbody/configs/default.yaml (batch 100, AdamW(1e-3, wd 1e-12))
+NBODY_B, NBODY_N = 512, 5
+NBODY_CONFIG = os.path.join("examples", "nbody", "configs", "default.yaml")
 
 
 def log(*a):
@@ -1695,7 +1717,8 @@ def time_optimized(path, sw, tp, pipe, x_loader):
 
 def device_profile(fn, top: int = 25):
     """Device time by kernel name over one call of fn (after a warm-up
-    call): [name, ms, calls] rows, largest first, then the total."""
+    call): [name, ms, calls] rows, largest first, then the total (kernels
+    only: user annotations are left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1706,7 +1729,9 @@ def device_profile(fn, top: int = 25):
         sync()
     rows = []
     for e in p.key_averages():  # kernel rows only: operator rows repeat them
-        if e.device_type != DeviceType.CUDA:
+        # a user annotation's span on the device timeline (the optimizer's
+        # "Optimizer.step#AdamW.step") covers kernels counted in their own rows
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2458,6 +2483,256 @@ def select_gradient_phase(sw, gen):
     return out
 
 
+def nbody_states(gen, b):
+    """(loc, vel, charges) of b graphs of NBODY_N bodies, as bench.py draws
+    them: normal positions and velocities, charges +-1."""
+    loc = torch.randn(b, NBODY_N, 3, generator=gen)
+    vel = torch.randn(b, NBODY_N, 3, generator=gen)
+    charges = torch.randint(0, 2, (b, NBODY_N, 1), generator=gen).float() * 2 - 1
+    return loc, vel, charges
+
+
+def nbody_canonicalize_phase(tp, gen):
+    """bench.py's n-body canonicalize (phase 18): EuclideanGroupNBody around
+    VNDeepSets(hidden 16, 4 layers, "pv"), 512 graphs of 5 bodies, fp32,
+    eval (weights from seed 31). Checks: finite outputs of the expected
+    shapes; SE(3) invariance: canonicalizing loc Q + s, vel Q for random
+    rotations Q and shifts s gives the canonical loc and vel within 1e-3
+    (tests/test_nbody.py's bar); the invert gives loc back within 1e-4; the
+    first 8 graphs within 1e-4 of the CPU run of the same module. Each bar
+    is per graph and widens with the graph's frame: Gram-Schmidt amplifies
+    rounding by the condition number kappa of the network's three vectors
+    (random weights make a few graphs' vectors nearly dependent: kappa
+    has median 10.7 and reaches 8,441 on the CPU, 13.0 and 6,615 on the
+    card, whose weights are drawn there), so invariance and the
+    CPU comparison take max(bar, 3e-6 kappa max(1, max|loc - t|)), and the
+    invert, whose error is (loc - t)(R^T R - I), takes 1e-4 + 2 max|R R^T -
+    I| max(1, max|loc - t|) (the one graph at kappa 8,441: 5.4e-4 with an
+    orthogonality defect of 4.0e-4). The graphs over the plain bars are
+    reported with their kappa. Times: ms
+    by CUDA events (median of 5 windows of 10 calls), graphs/s, and the
+    kernel launches and device time of one call (profile), so the device's
+    busy share."""
+    torch.manual_seed(31)
+    canon = tp.EuclideanGroupNBody(tp.VNDeepSets(hidden_dim=16, num_layers=4,
+                                                 canon_feature="pv", device=DEVICE))
+    loc, vel, charges = (t.to(DEVICE) for t in nbody_states(gen, NBODY_B))
+
+    def call(lo=loc, ve=vel):
+        return canon.canonicalize(None, loc=lo, vel=ve, charges=charges)
+
+    (cl, cv), info = call()
+    sync()
+    assert cl.shape == cv.shape == (NBODY_B, NBODY_N, 3)
+    assert info.element.rotation.shape == (NBODY_B, 3, 3)
+    for t in (cl, cv, info.element.rotation, info.element.translation):
+        assert bool(torch.isfinite(t).all())
+    Q = random_rotations(NBODY_B, gen).to(DEVICE)
+    shift = torch.randn(NBODY_B, 1, 3, generator=gen).to(DEVICE)
+    (cl2, cv2), _ = call(loc @ Q + shift, vel @ Q)
+    vectors, t = canon.canonicalization_network(loc, vel, charges)
+    kappa = torch.linalg.cond(vectors.double().cpu())
+    R = info.element.rotation.double().cpu()
+    defect = (R @ R.transpose(1, 2) - torch.eye(3, dtype=torch.float64)).abs().amax((1, 2))
+    scale = (loc - t[:, None]).abs().amax((1, 2)).double().cpu().clamp(min=1.0)
+    inv_err = torch.maximum((cl2 - cl).abs().amax((1, 2)), (cv2 - cv).abs().amax((1, 2))).cpu()
+    back_err = (canon.invert_canonicalization(info, cl) - loc).abs().amax((1, 2)).cpu()
+    canon_cpu = copy.deepcopy(canon).to("cpu")
+    (cl_cpu, cv_cpu), info_cpu = canon_cpu.canonicalize(
+        None, loc=loc[:8].cpu(), vel=vel[:8].cpu(), charges=charges[:8].cpu())
+    cpu_err = torch.stack([(cl[:8].cpu() - cl_cpu).abs().amax((1, 2)),
+                           (cv[:8].cpu() - cv_cpu).abs().amax((1, 2)),
+                           (info.element.rotation[:8].cpu()
+                            - info_cpu.element.rotation).abs().amax((1, 2))]).amax(0)
+    bars = {"invariance": torch.clamp(3e-6 * kappa * scale, min=1e-3),
+            "invert": 1e-4 + 2 * defect * scale,
+            "cpu": torch.clamp(3e-6 * kappa[:8] * scale[:8], min=1e-4)}
+    errs = {"invariance": inv_err, "invert": back_err, "cpu": cpu_err}
+    plain = {"invariance": 1e-3, "invert": 1e-4, "cpu": 1e-4}
+    out = {"kappa_median": kappa.median().item(), "kappa_max": kappa.max().item(),
+           "kappa_first_8_max": kappa[:8].max().item()}
+    for k, e in errs.items():
+        over = e > plain[k]
+        out[k] = {"max": e.max().item(), "over_plain_bar": int(over.sum()),
+                  "kappa_over_plain_bar": kappa[:len(e)][over].tolist(),
+                  "max_over_bar": (e / bars[k]).max().item()}
+    log(f"nbody canonicalize checks: {json.dumps(out)}")
+    for k, e in errs.items():
+        assert bool((e <= bars[k]).all()), (k, out)
+    t = windowed_ms({"ms": call}, reps=10)
+    rows = device_profile(call)
+    out.update(ms=t["ms"], ms_range=t["ms_range"], graphs_per_s=NBODY_B / t["ms"] * 1e3,
+               launches_per_call=rows[-1][2], device_ms=rows[-1][1],
+               busy_share=rows[-1][1] / t["ms"], profile=rows[:8] + rows[-1:])
+    log(f"nbody canonicalize: {json.dumps(out)}")
+    return out
+
+
+def grads_by_name(module):
+    return {n: p.grad.detach().cpu().clone() for n, p in module.named_parameters()}
+
+
+def nbody_step_vs_cpu(tp, cli, cfg, batch, gen):
+    """One train step at dropout 0 from the same weights on the card and on
+    the CPU, with the bars of tests/test_torch_port_nbody.py's step against
+    JAX: the loss within 1e-5 relative, every gradient element within 1e-4
+    of the largest, the AdamW update within 1e-6 where |g| > 1e-3 max|g|.
+    The step's gradients pass through Gram-Schmidt of nearly dependent
+    frame vectors in a few graphs, which amplifies rounding: the CPU alone,
+    on the batch times (1 + 1e-7 noise), moves them by 2.6e-5 to 5.5e-5 of
+    the largest (3.9e-5 from a float64 step). So the CPU also takes that step,
+    and each bar is the larger of the one above and three times the CPU's
+    own difference there (as `train_vs_cpu` does for the continuous
+    trainer)."""
+    cfg0 = cfg.override("canonicalization.network_hyperparams.dropout=0.0")
+    state = cli.build_state(cfg0, DEVICE)
+    before = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
+    model_cpu = copy.deepcopy(state.model).to("cpu")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    noisy = {k: v if k == "charges" else v * (1.0 + 1e-7 * torch.randn(v.shape, generator=gen))
+             for k, v in cpu_batch.items()}
+    step = tp.make_nbody_train_step()
+    res = []
+    for model, b in ((state.model, batch), (model_cpu, cpu_batch),
+                     (copy.deepcopy(model_cpu), noisy)):
+        st = tp.create_nbody_state(model, cfg.experiment.learning_rate,
+                                   cfg.experiment.weight_decay)
+        _, m = step(st, b)
+        res.append((m["loss/task"].item(), grads_by_name(model),
+                    {n: p.detach().cpu() - before[n] for n, p in model.named_parameters()}))
+    gmax = max(v.abs().max().item() for v in res[1][1].values())
+    big = {n: v.abs() > 1e-3 * gmax for n, v in res[1][1].items()}
+
+    def differences(a, b):
+        (la, ga, ua), (lb, gb, ub) = a, b
+        return {"loss_rel": abs(la - lb) / abs(lb),
+                "grad_rel_max": max((ga[n] - gb[n]).abs().max().item() for n in gb) / gmax,
+                "update_max": max((ua[n] - ub[n]).abs()[big[n]].max().item()
+                                  for n in gb if big[n].any())}
+
+    out = differences(res[0], res[1])
+    out["cpu_spread"] = spread = differences(res[2], res[1])
+    out["bars"] = bars = {"loss_rel": 1e-5,
+                          "grad_rel_max": max(1e-4, 3 * spread["grad_rel_max"]),
+                          "update_max": max(1e-6, 3 * spread["update_max"])}
+    log(f"nbody train step vs CPU: {json.dumps(out)}")
+    assert all(out[k] <= bar for k, bar in bars.items()), out
+    return out
+
+
+def nbody_trainer_phase(tp, gen):
+    """examples/nbody/configs/default.yaml's trainer at full width (phase
+    18): VNDeepSets 16 x 4 ("pv", dropout 0.5) before a GNN 32 x 4, batch
+    100, AdamW(1e-3, wd 1e-12), built by the CLI's `build_state`; the data
+    simulated on the card by `generate_nbody_dataset` at the CLI's sizes
+    (512 train and 128 validation graphs, 5000 leaps, a frame every 100,
+    frame 30 -> 40), its time reported. The loss over TRAIN_FALL_STEPS steps
+    on one fixed batch (finite, falling); ms per step by CUDA events over
+    TRAIN_TIMED_STEPS steps after two warm-up steps, steps/s, the steps'
+    peak memory above what was allocated when they began, the kernel launches and device time of one step (profile), so the
+    device's busy share; the validation MSE; one step at dropout 0 against
+    the CPU (`nbody_step_vs_cpu`, with the CPU's own spread under a 1e-7
+    perturbation); one finite train step each of the
+    Transformer and VN-DeepSets predictors at the config's widths."""
+    from equiadapt_tpu_torch.cli import nbody_train as cli
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = cli.compose([f"config={os.path.join(here, NBODY_CONFIG)}"])
+    h, pr, ex = cfg.canonicalization.network_hyperparams, cfg.prediction, cfg.experiment
+    assert (h.hidden_dim, h.num_layers, h.canon_feature, h.dropout) == (16, 4, "pv", 0.5), h
+    assert (pr.architecture, pr.hidden_dim, pr.num_layers) == ("GNN", 32, 4), pr
+    assert (ex.batch_size, ex.learning_rate, ex.weight_decay) == (100, 1e-3, 1e-12), ex
+    out = {}
+    data = {}
+    for split in ("train", "valid"):
+        sync()
+        t0 = time.perf_counter()
+        data[split] = cli.dataset_split(cfg, split, DEVICE)
+        sync()
+        out[f"simulate_{split}_ms"] = (time.perf_counter() - t0) * 1e3
+        n = cli.SPLITS[split][0]
+        assert data[split]["loc"].shape == data[split]["loc_end"].shape == (n, NBODY_N, 3)
+        assert all(bool(torch.isfinite(v).all()) for v in data[split].values()), split
+    state = cli.build_state(cfg, DEVICE)
+    step = tp.make_nbody_train_step()
+    dgen = torch.Generator(device=DEVICE).manual_seed(32)
+    batch = {k: v[:ex.batch_size] for k, v in data["train"].items()}
+    losses = []
+    for _ in range(TRAIN_FALL_STEPS):
+        state, m = step(state, batch, dgen)
+        losses.append(m["loss/task"].item())
+    assert all(math.isfinite(v) for v in losses), losses
+    assert sum(losses[-3:]) / 3 < sum(losses[:3]) / 3, losses
+    for _ in range(2):
+        step(state, batch, dgen)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # earlier phases' tensors too
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_TIMED_STEPS):
+        state, m = step(state, batch, dgen)
+    end.record()
+    sync()
+    ms = start.elapsed_time(end) / TRAIN_TIMED_STEPS
+    step_mem = torch.cuda.max_memory_allocated() - resident
+    assert math.isfinite(m["loss/task"].item()), m
+    rows = device_profile(lambda: step(state, batch, dgen))
+    val = tp.nbody_eval_mse(state.model, data["valid"]).item()
+    assert math.isfinite(val), val
+    out.update(step_ms=ms, steps_per_s=1e3 / ms, graphs_per_s=ex.batch_size / ms * 1e3,
+               step_peak_mem_gib=step_mem / 2**30,
+               launches_per_step=rows[-1][2], device_ms_per_step=rows[-1][1],
+               busy_share=rows[-1][1] / ms, val_mse=val, losses=losses,
+               profile=rows[:8] + rows[-1:])
+    out["vs_cpu"] = nbody_step_vs_cpu(tp, cli, cfg, batch, gen)
+    for arch in ("Transformer", "vndeepsets"):
+        st = cli.build_state(cfg.override(f"prediction.architecture={arch}"), DEVICE)
+        st, m = step(st, batch, dgen)
+        assert math.isfinite(m["loss/task"].item()), (arch, m)
+        assert all(bool(torch.isfinite(p.grad).all()) for p in st.model.parameters()
+                   if p.grad is not None), arch
+        out[f"{arch}_loss"] = m["loss/task"].item()
+    log(f"nbody trainer: {json.dumps({k: v for k, v in out.items() if k != 'losses'})}; "
+        f"losses {[round(v, 4) for v in losses]}")
+    del state, data, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def nbody_cli_phase(tp):
+    """The n-body CLI on the card (phase 18): one epoch of default.yaml with
+    its checkpoint in a temporary directory, then test mode from that
+    checkpoint, whose printed test/mse must equal (1e-6) the MSE of the
+    trained state on the same test split."""
+    import tempfile
+
+    from equiadapt_tpu_torch.cli import nbody_train as cli
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        state = cli.main([f"config={os.path.join(here, NBODY_CONFIG)}",
+                          "experiment.num_epochs=1", f"checkpoint.checkpoint_path={ck}"],
+                         device=DEVICE)
+        sync()
+        out["train_s"] = time.perf_counter() - t0
+        assert os.path.isfile(os.path.join(ck, "state.pt")), os.listdir(tmp)
+        test_args = ["experiment.run_mode=test", f"checkpoint.checkpoint_path={ck}"]
+        t0 = time.perf_counter()
+        metrics = cli.main(test_args, device=DEVICE)
+        out["test_s"] = time.perf_counter() - t0
+        cfg = cli.compose(test_args)
+        mse = tp.nbody_eval_mse(state.model, cli.dataset_split(cfg, "test", DEVICE)).item()
+    out.update(test_mse=metrics["test/mse"], in_memory_mse=mse)
+    log(f"nbody CLI: {json.dumps(out)}")
+    assert math.isfinite(mse) and abs(metrics["test/mse"] - mse) <= 1e-6 * max(1.0, mse), out
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -2741,6 +3016,17 @@ def main() -> int:
             checks["continuous_train_vs_cpu"] = train_vs_cpu(
                 tp, gen_ct, build=lambda: build_continuous_trainer(tp, "fp32_exact"))
             times["opt_steerable"] = opt_steerable_phase(tp, gen_ct)
+        # n-body (phase 18): no kernel of the port lies on its path
+        for mod in (sw, sr, bw, kn, orb):
+            mod.reset_launches()
+        gen_nb = torch.Generator().manual_seed(19)
+        times["nbody_canonicalize"] = nbody_canonicalize_phase(tp, gen_nb)
+        with torch.enable_grad():
+            times["nbody_trainer"] = nbody_trainer_phase(tp, gen_nb)
+            checks["nbody_cli"] = nbody_cli_phase(tp)
+        nbody_launches = {k: v for mod in (sw, sr, bw, kn, orb)
+                          for k, v in mod.launches.items()}
+        assert not nbody_launches, nbody_launches
         for key, row in times["continuous_train"].items():
             launches.update({f"continuous_train_{key}:{k}": v
                              for k, v in row["launches"].items()})
@@ -2803,6 +3089,18 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
+    nc, nt = times["nbody_canonicalize"], times["nbody_trainer"]
+    log(json.dumps({"nbody": {
+        "canonicalize_ms": nc["ms"], "canonicalize_graphs_per_s": nc["graphs_per_s"],
+        "canonicalize_launches": nc["launches_per_call"],
+        "canonicalize_busy_share": nc["busy_share"],
+        "train_step_ms": nt["step_ms"], "train_steps_per_s": nt["steps_per_s"],
+        "train_launches_per_step": nt["launches_per_step"],
+        "train_busy_share": nt["busy_share"],
+        "train_step_peak_mem_gib": nt["step_peak_mem_gib"],
+        "simulate_train_ms": nt["simulate_train_ms"],
+        "simulate_valid_ms": nt["simulate_valid_ms"],
+        "cli_test_mse": checks["nbody_cli"]["test_mse"]}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

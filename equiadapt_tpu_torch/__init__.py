@@ -31,6 +31,12 @@ Ported so far:
   |G|-orbit (kernel K4 for quarter turns, static warps otherwise) ->
   `ConvNetwork` -> cosine scores against a reference vector -> select
   (kernel K1 on NCHW memory, K3 on NHWC);
+* the n-body family: the charged-particle and spring simulators on the
+  device (`data`), VN-DeepSets and the SE(3) `EuclideanGroupNBody`
+  (`nbody`), the EGNN-style GNN, MLP and Transformer predictors
+  (`models.egnn`), `NBodyPipeline` with its train step, the checkpoint
+  and metric harness (`utils.checkpoint`, `utils.metrics`) and the CLI
+  `python -m equiadapt_tpu_torch.cli.nbody_train` (no kernel on its path);
 * the image-classification pipeline (`ImageClassifierPipeline`,
   `classification_loss`, the training half `TrainState`, `make_optimizer`,
   `create_train_state`, `make_train_step`, and `make_eval_step`,
@@ -40,9 +46,9 @@ Ported so far:
   and the registries.
 
 The point-cloud family and the optimized discrete canonicalizer are eval
-only: call `.eval()` on them. The discrete and continuous families, their
-networks and the ResNets take `training` as an argument and ignore the
-module mode.
+only: call `.eval()` on them. The discrete, continuous and n-body families,
+their networks and the ResNets take `training` as an argument and ignore
+the module mode.
 """
 
 from equiadapt_tpu_torch.common import (
@@ -73,7 +79,21 @@ from equiadapt_tpu_torch.images import (
     optimization_specific_loss,
     steerable_optimization_loss,
 )
-from equiadapt_tpu_torch.models import DGCNN, PointNet, ResNet18, ResNet50
+from equiadapt_tpu_torch.data import (
+    generate_nbody_dataset,
+    simulate_charged,
+    simulate_springs,
+)
+from equiadapt_tpu_torch.models import (
+    DGCNN,
+    GNN,
+    NBodyMLP,
+    NBodyTransformer,
+    PointNet,
+    ResNet18,
+    ResNet50,
+)
+from equiadapt_tpu_torch.nbody import EuclideanGroupNBody, VNDeepSets
 from equiadapt_tpu_torch.ops.group_action import (
     get_action_on_image_features,
     invert_regular_fast_diff,
@@ -81,14 +101,18 @@ from equiadapt_tpu_torch.ops.group_action import (
 from equiadapt_tpu_torch.ops.kernels.orbit import materialize_orbit, rot90_flip_orbit
 from equiadapt_tpu_torch.pipelines import (
     ImageClassifierPipeline,
+    NBodyPipeline,
     PointcloudClassificationPipeline,
     TrainState,
     classification_loss,
+    create_nbody_state,
     create_train_state,
     group_inference,
     make_eval_step,
+    make_nbody_train_step,
     make_optimizer,
     make_train_step,
+    nbody_eval_mse,
     to_network_layout,
     vanilla_inference,
 )
@@ -113,6 +137,8 @@ from equiadapt_tpu_torch.utils import (
     get_image_canonicalization_network,
     get_image_canonicalizer,
     get_image_prediction_network,
+    get_nbody_canonicalizer,
+    get_nbody_prediction_network,
     get_pointcloud_canonicalizer,
     get_pointcloud_prediction_network,
     flax_variables,
@@ -149,6 +175,14 @@ __all__ = [
     "ResNet50",
     "PointNet",
     "DGCNN",
+    "GNN",
+    "NBodyMLP",
+    "NBodyTransformer",
+    "EuclideanGroupNBody",
+    "VNDeepSets",
+    "simulate_charged",
+    "simulate_springs",
+    "generate_nbody_dataset",
     "ContinuousGroupPointcloudCanonicalization",
     "EquivariantPointcloudCanonicalization",
     "VNSmall",
@@ -173,6 +207,10 @@ __all__ = [
     "to_network_layout",
     "vanilla_inference",
     "group_inference",
+    "NBodyPipeline",
+    "create_nbody_state",
+    "make_nbody_train_step",
+    "nbody_eval_mse",
     "get_action_on_image_features",
     "invert_regular_fast_diff",
     "rot90_flip_orbit",
@@ -185,6 +223,8 @@ __all__ = [
     "get_image_prediction_network",
     "get_pointcloud_canonicalizer",
     "get_pointcloud_prediction_network",
+    "get_nbody_canonicalizer",
+    "get_nbody_prediction_network",
     "load_flax_variables",
     "flax_variables",
 ]

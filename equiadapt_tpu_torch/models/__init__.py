@@ -1,5 +1,14 @@
 """Prediction networks."""
 
+from equiadapt_tpu_torch.models.egnn import (
+    GCL,
+    GCLRF,
+    GNN,
+    NBodyMLP,
+    NBodyTransformer,
+    edge_attributes,
+    positional_encoding,
+)
 from equiadapt_tpu_torch.models.pointnet import DGCNN, PointNet, get_graph_feature
 from equiadapt_tpu_torch.models.resnet import (
     BasicBlock,
@@ -11,5 +20,7 @@ from equiadapt_tpu_torch.models.resnet import (
     WideResNet101,
 )
 
-__all__ = ["DGCNN", "PointNet", "get_graph_feature", "BasicBlock", "Bottleneck",
+__all__ = ["GCL", "GCLRF", "GNN", "NBodyMLP", "NBodyTransformer",
+           "edge_attributes", "positional_encoding",
+           "DGCNN", "PointNet", "get_graph_feature", "BasicBlock", "Bottleneck",
            "ResNet", "ResNet18", "ResNet50", "WideResNet50", "WideResNet101"]

@@ -12,6 +12,12 @@ from equiadapt_tpu_torch.pipelines.classification import (
     to_network_layout,
     vanilla_inference,
 )
+from equiadapt_tpu_torch.pipelines.nbody import (
+    NBodyPipeline,
+    create_nbody_state,
+    make_nbody_train_step,
+    nbody_eval_mse,
+)
 from equiadapt_tpu_torch.pipelines.pointcloud import (
     PointcloudClassificationPipeline,
     classification_metrics,
@@ -22,5 +28,7 @@ __all__ = ["ImageClassifierPipeline", "TrainState", "classification_loss",
            "create_train_state", "group_inference", "make_eval_step",
            "make_optimizer", "make_train_step", "to_network_layout",
            "vanilla_inference",
+           "NBodyPipeline", "create_nbody_state", "make_nbody_train_step",
+           "nbody_eval_mse",
            "PointcloudClassificationPipeline", "classification_metrics",
            "random_rotate"]

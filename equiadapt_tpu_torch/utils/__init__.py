@@ -18,6 +18,8 @@ from equiadapt_tpu_torch.utils.registry import (
     get_image_canonicalization_network,
     get_image_canonicalizer,
     get_image_prediction_network,
+    get_nbody_canonicalizer,
+    get_nbody_prediction_network,
     get_pointcloud_canonicalizer,
     get_pointcloud_prediction_network,
 )
@@ -40,4 +42,6 @@ __all__ = [
     "get_image_prediction_network",
     "get_pointcloud_canonicalizer",
     "get_pointcloud_prediction_network",
+    "get_nbody_canonicalizer",
+    "get_nbody_prediction_network",
 ]

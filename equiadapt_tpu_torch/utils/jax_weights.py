@@ -16,6 +16,12 @@ Flax gives their counterparts, so a leaf's path names its torch owner:
   (params) and `norm_sq` (batch_stats). `NormBatchNorm` is not a torch
   BatchNorm, so its leaves never take the BatchNorm renaming;
 * `VNBilinear` `bilinear` (C1, C2, out) copied as it is;
+* `nn.MultiHeadDotProductAttention`'s `query` / `key` / `value` / `out`
+  (the port's `models.egnn.DenseGeneral`, a Linear over flattened axes):
+  `kernel` (d, heads, head_dim) or (heads, head_dim, d) -> `weight`
+  (out, in) of the flattened kernel, `bias` flattened;
+* `nn.LayerNorm`: `scale` / `bias` -> `weight` / `bias`;
+* `nn.Embed`: `embedding` (num, features) -> `weight`;
 * a raw parameter of any other owner, copied as it is when the owner has a
   parameter of that name (the optimized canonicalizer's own
   `reference_vector` (1, D), beside its network's leaves).
@@ -44,6 +50,7 @@ from equiadapt_tpu_torch.images.networks.steerable import (
     NormNonlinearity,
     SteerableConv,
 )
+from equiadapt_tpu_torch.models.egnn import DenseGeneral
 from equiadapt_tpu_torch.pointcloud.vector_neurons import VNBilinear
 
 __all__ = ["load_flax_variables", "flax_placements", "flax_variables"]
@@ -54,6 +61,8 @@ _BN_NAMES = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
+
+_LN_NAMES = {"scale": "weight", "bias": "bias"}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
@@ -70,6 +79,17 @@ def _convert(owner: nn.Module, collection: str, leaf: str, value: np.ndarray):
         name = _BN_NAMES.get((collection, leaf))
         if name is not None:
             return name, value
+    elif collection == "params" and isinstance(owner, DenseGeneral):
+        if leaf == "kernel":
+            return "weight", value.reshape(owner.in_features, owner.out_features).T
+        if leaf == "bias":
+            return "bias", value.reshape(-1)
+    elif collection == "params" and isinstance(owner, nn.LayerNorm):
+        if leaf in ("scale", "bias"):
+            return _LN_NAMES[leaf], value
+    elif collection == "params" and isinstance(owner, nn.Embedding):
+        if leaf == "embedding":
+            return "weight", value
     elif collection == "params" and isinstance(owner, nn.Conv2d):
         if leaf == "kernel":
             return "weight", value.transpose(3, 2, 0, 1)
@@ -155,12 +175,21 @@ def load_flax_variables(module: nn.Module,
 
 
 _BN_LEAVES = {v: k for k, v in _BN_NAMES.items()}
+_LN_LEAVES = {v: k for k, v in _LN_NAMES.items()}
 
 
 def _unconvert(owner: nn.Module, name: str, value: np.ndarray):
     """(collection, Flax leaf, array in Flax layout) for one torch tensor."""
     if isinstance(owner, nn.modules.batchnorm._BatchNorm):
         return (*_BN_LEAVES[name], value)
+    if isinstance(owner, DenseGeneral):
+        if name == "weight":
+            return "params", "kernel", value.T.reshape(owner.kernel_shape)
+        return "params", "bias", value.reshape(owner.bias_shape)
+    if isinstance(owner, nn.LayerNorm):
+        return "params", _LN_LEAVES[name], value
+    if isinstance(owner, nn.Embedding) and name == "weight":
+        return "params", "embedding", value
     if isinstance(owner, nn.Conv2d) and name == "weight":
         return "params", "kernel", value.transpose(2, 3, 1, 0)
     if isinstance(owner, nn.Linear) and name == "weight":

@@ -6,8 +6,8 @@ both packages (weights carried across by `load_flax_variables`). Modules are
 built on `device` ("cuda" unless the caller asks for the CPU).
 
 A key whose module is not ported yet raises `NotImplementedError` naming
-its ROADMAP.md item; nothing falls back to another network. The n-body and
-segmentation registries wait for their slices (items 13 and 14).
+its ROADMAP.md item; nothing falls back to another network. The
+segmentation registry waits for its slice (item 14).
 """
 
 from __future__ import annotations
@@ -34,7 +34,15 @@ from equiadapt_tpu_torch.images.networks import (
     WideResNet50Network,
     WideResNet101Network,
 )
-from equiadapt_tpu_torch.models import DGCNN, PointNet, ResNet18, ResNet50
+from equiadapt_tpu_torch.models import (
+    DGCNN,
+    GNN,
+    NBodyTransformer,
+    PointNet,
+    ResNet18,
+    ResNet50,
+)
+from equiadapt_tpu_torch.nbody import EuclideanGroupNBody, VNDeepSets
 from equiadapt_tpu_torch.ops.warp import crop_and_resize_size
 from equiadapt_tpu_torch.pointcloud.canonicalization import (
     EquivariantPointcloudCanonicalization,
@@ -48,6 +56,8 @@ __all__ = [
     "get_image_prediction_network",
     "get_pointcloud_canonicalizer",
     "get_pointcloud_prediction_network",
+    "get_nbody_canonicalizer",
+    "get_nbody_prediction_network",
 ]
 
 
@@ -200,3 +210,32 @@ def get_pointcloud_prediction_network(architecture: str, num_classes: int,
     if architecture == "DGCNN":
         return DGCNN(num_classes=num_classes, **kw)
     raise ValueError(f"{architecture} is not implemented")
+
+
+def get_nbody_canonicalizer(cfg: CanonicalizationConfig, device="cuda"):
+    """The n-body canonicalizer of `cfg`: the identity, or EuclideanGroupNBody
+    around VNDeepSets."""
+    h = cfg.network_hyperparams
+    if cfg.canonicalization_type == "identity":
+        return IdentityCanonicalization()
+    net = VNDeepSets(
+        hidden_dim=h.hidden_dim, num_layers=h.num_layers,
+        layer_pooling=h.layer_pooling, final_pooling=h.final_pooling,
+        nonlinearity=h.nonlinearity, canon_feature=h.canon_feature,
+        canon_translation=h.canon_translation, dropout=h.dropout,
+        out_dim=h.out_dim, device=device,
+    )
+    return EuclideanGroupNBody(canonicalization_network=net)
+
+
+def get_nbody_prediction_network(cfg: PredictionConfig, device="cuda") -> nn.Module:
+    """GNN, Transformer or VNDeepSets in prediction mode."""
+    if cfg.architecture == "GNN":
+        return GNN(hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers, device=device)
+    if cfg.architecture == "Transformer":
+        return NBodyTransformer(hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
+                                device=device)
+    if cfg.architecture == "vndeepsets":
+        return VNDeepSets(hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
+                          out_dim=1, device=device)
+    raise ValueError(f"{cfg.architecture} is not implemented as a prediction network")
