@@ -198,11 +198,45 @@ Phases, in order; any failure raises and the exit code is non-zero:
    spread), one step each of the Transformer and VN-DeepSets predictors; the
    CLI (`equiadapt_tpu_torch.cli.nbody_train`): one epoch with a checkpoint
    in a temporary directory, then test mode from it, its test/mse equal
-   (1e-6) to the trained state's on the same split.
+   (1e-6) to the trained state's on the same split;
+19. the classification CLIs (`equiadapt_tpu_torch.cli.classification_train`
+   and `classification_serve`), each run with the launch counts set to 0
+   just before it and read just after, on data files the phase writes (random
+   uint8 images from a seed), and the first K1 / K3 / K4 launch of each
+   kind (kernel, dtype, sources, shape, alignment) in each run made again
+   after it through its wrapper, on a copy of its inputs, against the plain
+   version: bit-equal, by the same launch path (the `kernels` line lists
+   these shapes under "cli_checks"): BASELINE config 1 (configs/default.yaml: C4
+   GCNN 16 x 2, crop 0.9, resize 64, ResNet-50, batch 128) for one epoch on
+   CIFAR-10 pickles (5 x 512 images: 20 steps), the loss finite, then test
+   mode from its checkpoint, test/acc equal to the trained state's on the
+   same batch, with `vanilla` inference (K1 on the eval path, its launch
+   path recorded) and `group` inference (one K4 launch, "tile", and K1a);
+   BASELINE config 2 (canonicalization=opt_group_equivariant: D8,
+   ConvNetwork 5x5, 32 channels, 128-vector, resize 96; group-contrast
+   weight 1) for one epoch on STL-10 binaries (1280 + 256 images of 96 px:
+   10 steps; static-warp orbit, two-source K1 on the eval path), then test
+   mode as for config 1; each config's step timed on the CLI's own state
+   and batch (ms, img/s, peak memory); its D4 variant with a learned
+   reference vector and artifact dummies (0.1) through `make_train_step`:
+   one K4 launch a step ("tile"), the loss finite and its task and prior
+   terms falling over 8 steps, one step against the CPU (dropout and
+   dummies off) with phase 12's bars, raised to three times the CPU's own
+   spread where larger (as phase 17's); the
+   serving CLI at serving_bf16.yaml (C8, fused pool, fast warp, bf16,
+   batch 256, 224 px) with fresh weights (K3) and on config 1's checkpoint
+   at its own config (K3; every tensor of the served pipeline equal to
+   the trained state's); then MFU: `count_flops` (meta copies, no device work)
+   of one train step (forward and backward) of the discrete trainers of
+   phase 11 and of the two CLI configs, and of the bare bf16 ResNet-50
+   forward at batch 256, each over its measured time and the card's dense
+   peak for its dtype (PEAK_FLOPS, by nvidia-smi name; null for another
+   card).
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
-n-body JSON line, the nvidia-smi line and the `kernels` JSON line.
+n-body, classification-CLI and MFU JSON lines, the nvidia-smi line and the
+`kernels` JSON line.
 """
 
 from __future__ import annotations
@@ -295,6 +329,16 @@ WINDOWS = 5
 # examples/nbody/configs/default.yaml (batch 100, AdamW(1e-3, wd 1e-12))
 NBODY_B, NBODY_N = 512, 5
 NBODY_CONFIG = os.path.join("examples", "nbody", "configs", "default.yaml")
+# phase 19, the classification CLIs: config 1 on CIFAR-10 pickles of
+# CIFAR_PER_FILE images a file (20 steps of 128), config 2 on STL-10
+# binaries (10 steps of 128); steps timed a CLI; optimized D4 steps
+CLS_CONFIGS = os.path.join("examples", "images", "classification", "configs")
+CIFAR_PER_FILE, STL_TRAIN, STL_TEST = 512, 1280, 256
+CLI_TIMED_STEPS, OPT_D4_STEPS = 5, 8
+# dense peak rates by the card's nvidia-smi name, FLOP/s: NVIDIA H100 Tensor
+# Core GPU datasheet, H100 SXM column: BF16 Tensor Core 989.4 TFLOP/s
+# without sparsity, FP32 66.9 TFLOP/s (TF32 is off here)
+PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {"bfloat16": 989.4e12, "float32": 66.9e12}}
 
 
 def log(*a):
@@ -1353,28 +1397,74 @@ def time_pointcloud(pipe, x):
     return times
 
 
+def clone_at(t):
+    """A copy of contiguous `t` at the same offset from a 16-byte boundary
+    (a launch path depends on it; the allocator's blocks start on 512)."""
+    off = (t.data_ptr() % 16) // t.element_size()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    return buf[off:].view(t.shape).copy_(t)
+
+
+def orbit_args(ks, flips):
+    """`rot90_flip_orbit`'s (num_rotations, reflections, sign) for the
+    element table K4's launcher takes."""
+    n = flips.count(False)  # the sign changes the table at C4 only
+    return n, any(flips), -1.0 if n == 4 and ks[1] == 3 else 1.0
+
+
 class SourceLog:
     """The number of sources of each K1 / K2 launch made while a main path
     runs (K1a is K1 with one source), by path: wraps the select wrappers'
-    launcher, which counts the launch itself."""
+    launcher, which counts the launch itself, and K4's.
 
-    def __init__(self, sw):
-        self.path, self.rows = None, []
-        launch = sw._launch
+    With `capture`, the inputs of the first launch of each kind (kernel,
+    dtype, sources, shape, alignment, table) are copied before it runs, and
+    the launch path it took is noted; `check` runs each again through its
+    wrapper on the copy, and the plain version beside it."""
+
+    def __init__(self, sw, orb):
+        self.sw, self.orb = sw, orb
+        self.path, self.rows, self.capture, self.inputs = None, [], False, {}
+        launch, orbit_launch = sw._launch, orb._launch
+
+        def keep(key, mod, inputs, run):
+            if not self.capture or key in self.inputs:
+                return run()
+            copies = inputs()
+            seen = dict(mod.path_launches)
+            out = run()
+            (path,) = [k for k, v in mod.path_launches.items() if v != seen.get(k, 0)]
+            self.inputs[key] = (copies, path.split("/")[-1])
+            return out
 
         def recording(name, sources, *args):
-            if self.path is not None:
-                tag = str(sources[0].dtype).removeprefix("torch.")
-                self.rows.append((self.path, name, tag, len(sources)))
-            return launch(name, sources, *args)
+            if self.path is None:
+                return launch(name, sources, *args)
+            tag = str(sources[0].dtype).removeprefix("torch.")
+            self.rows.append((self.path, name, tag, len(sources)))
+            key = (name, tag, len(sources), tuple(sources[0].shape),
+                   tuple(s.data_ptr() % 16 for s in sources),
+                   tuple(a is None for a in args[2:4]), args[4:])
+            return keep(key, sw, lambda: ([clone_at(s) for s in sources], [
+                a.clone() if torch.is_tensor(a) else a for a in args]),
+                lambda: launch(name, sources, *args))
+
+        def orbit_recording(x, ks, flips):
+            if self.path is None:
+                return orbit_launch(x, ks, flips)
+            key = ("rot90_flip_orbit", str(x.dtype).removeprefix("torch."),
+                   tuple(x.shape), x.data_ptr() % 16, ks, flips)
+            return keep(key, orb, lambda: clone_at(x),
+                        lambda: orbit_launch(x, ks, flips))
 
         sw._launch = recording
+        orb._launch = orbit_recording
 
-    def start(self, path):
-        self.path = path
+    def start(self, path, capture=False):
+        self.path, self.capture = path, capture
 
     def stop(self):
-        self.path = None
+        self.path, self.capture = None, False
 
     def select_launches(self, path=None):
         """{"select_planes/<dtype>": launches with 2+ sources,
@@ -1385,6 +1475,47 @@ class SourceLog:
                 key = f"{name}/{tag}" + (",1 source" if n == 1 else "")
                 out[key] = out.get(key, 0) + 1
         return out
+
+    def check(self, path):
+        """Each captured launch of `path` again through its wrapper, on the
+        copy of its inputs, against its plain version: bit-equal (NaN
+        payloads and -0.0 count), by the same launch path. Rows named as
+        the `kernels` line names the kernel; the copies are let go."""
+        sw, orb, rows = self.sw, self.orb, []
+        for key, (copies, launch_path) in self.inputs.items():
+            name, tag = key[0], key[1]
+            if name == "rot90_flip_orbit":
+                x, (ks, flips) = copies, key[4:]
+                args = orbit_args(ks, flips)
+                assert orb._elements(*args) == (ks, flips), (key, args)
+                mod, shape, sources = orb, list(x.shape), 1
+                run = lambda: orb.rot90_flip_orbit(x, *args)
+                plain = lambda: orb.rot90_flip_orbit_plain(x, *args)
+                entry = f"{name}[{tag}]"
+            else:
+                srcs, args = copies
+                mod, shape, sources = sw, list(srcs[0].shape), len(srcs)
+                run = lambda: sw._select(name, srcs, *args)
+                plain = lambda: (sw.select_planes_nhwc_plain(srcs, *args[:2])
+                                 if name == "select_planes_nhwc"
+                                 else sw.select_planes_plain(srcs, *args))
+                entry = f"{name}[{tag}" + (
+                    ",1 source]" if name == "select_planes" and sources == 1 else "]")
+            mod.reset_launches()
+            got, ref = run(), plain()
+            sync()
+            (replayed,) = mod.path_launches
+            row = {"path": path, "kernel": entry, "shape": shape, "sources": sources,
+                   "launch_path": launch_path,
+                   "max_abs_err": (got.float() - ref.float()).abs().max().item()}
+            assert replayed.split("/")[-1] == launch_path, (row, replayed)
+            assert torch.equal(orbit_bits(got), orbit_bits(ref)), row
+            rows.append(row)
+            del got, ref
+        self.inputs = {}
+        sw.reset_launches()
+        orb.reset_launches()
+        return rows
 
 
 def default_canonicalization(cfgmod):
@@ -2019,9 +2150,9 @@ def step_differences(a, b, before):
     return out
 
 
-def train_vs_cpu(tp, gen, build=None):
-    """One fp32-exact train step (SGD, dropout 0, batch TRAIN_CPU_B at 224 px)
-    from the same weights on the card and on the CPU. Bars: the loss within
+def step_vs_cpu(tp, gen, build=None, spread=False, size=None, loss_kw=None):
+    """One fp32-exact train step (SGD, dropout 0, batch TRAIN_CPU_B at 224 px,
+    or `size`) from the same weights on the card and on the CPU. Bars: the loss within
     1e-4 relative; the gradient norm of each top-level module within 1e-3
     relative; the BatchNorm running statistics within 1e-4 of each one's
     largest value; the updates, by their norms: the canonicalizer's and
@@ -2032,23 +2163,26 @@ def train_vs_cpu(tp, gen, build=None):
     alone, on the same step in channels-last and in NCHW memory, differs
     by 2.0e-2 over ResNet-50's gradients and 3.9e-5 at its head.
 
-    `build()` makes another pipeline: the continuous trainer, whose
-    NormBatchNorm statistics count with the BatchNorm ones. Its step is
-    worse conditioned: the canonicalizer's gradient is a sum over every
-    pixel of ResNet-50's input gradient times the image's slope at the
-    sample points, mostly cancelling. So the CPU also takes the step on the
-    batch times (1 + 1e-7 noise), and each gradient-norm and update bar is
-    the larger of the one above and three times the CPU's own difference
-    there (the CPU, measured: 1.3e-2 on the canonicalizer's gradient norm,
-    3.7e-2 and 4.9e-2 on the canonicalizer's and ResNet-50's updates)."""
-    loss_kw = {"prior_weight": 100.0}
+    `build()` makes another pipeline (the continuous trainer, whose
+    NormBatchNorm statistics count with the BatchNorm ones; the optimized
+    D4 trainer), `loss_kw` gives its loss weights. `spread` is for the
+    continuous trainer (and the optimized D4 one, `opt_d4_step_vs_cpu`),
+    whose step is worse conditioned: the
+    canonicalizer's gradient is a sum over every pixel of ResNet-50's input
+    gradient times the image's slope at the sample points, mostly
+    cancelling. So the CPU also takes the step on the batch times
+    (1 + 1e-7 noise), and each gradient-norm and update bar is the larger
+    of the one above and three times the CPU's own difference there (the
+    CPU, measured: 1.3e-2 on the canonicalizer's gradient norm, 3.7e-2 and
+    4.9e-2 on the canonicalizer's and ResNet-50's updates)."""
+    loss_kw = loss_kw or {"prior_weight": 100.0}
     pipe = build() if build else build_trainer(tp, "fp32_exact", dropout_rate=0.0)
     pipe_cpu = copy.deepcopy(pipe).to("cpu")
-    x = smooth_images(gen, TRAIN_CPU_B).contiguous()
+    x = smooth_images(gen, TRAIN_CPU_B, size).contiguous()
     labels = torch.randint(0, 10, (TRAIN_CPU_B,), generator=gen)
     before = {k: v.detach().cpu().clone() for k, v in pipe.state_dict().items()}
     runs = [(DEVICE, pipe, x), ("cpu", pipe_cpu, x)]
-    if build:
+    if spread:
         noise = torch.randn(x.shape, generator=gen)
         runs.append(("cpu", copy.deepcopy(pipe_cpu), x * (1.0 + 1e-7 * noise)))
     res = []
@@ -2063,19 +2197,29 @@ def train_vs_cpu(tp, gen, build=None):
     grad_bar = {k: 1e-3 for k in out["grad_norm_rel"]}
     upd_bar = {"canonicalizer": 1e-3, "prediction_network": 5e-2,
                "prediction_network.Dense_0": 1e-3}
-    if build:
-        spread = step_differences(res[2], res[1], before)
-        out["cpu_spread"] = spread
-        grad_bar = {k: max(v, 3 * spread["grad_norm_rel"][k]) for k, v in grad_bar.items()}
-        upd_bar = {k: max(v, 3 * spread["update_rel"][k]) for k, v in upd_bar.items()}
-        out["bars"] = {"grad_norm_rel": grad_bar, "update_rel": upd_bar}
-    log(f"train step vs CPU: {json.dumps(out)}")
-    assert out["loss_rel"] < 1e-4, out
-    assert all(v < grad_bar[k] for k, v in out["grad_norm_rel"].items()), out
-    assert all(v < upd_bar[k] for k, v in out["update_rel"].items()), out
-    assert out["bn_stats_rel"] < 1e-4, out
+    if spread:
+        own = step_differences(res[2], res[1], before)
+        out["cpu_spread"] = own
+        grad_bar = {k: max(v, 3 * own["grad_norm_rel"][k]) for k, v in grad_bar.items()}
+        upd_bar = {k: max(v, 3 * own["update_rel"][k]) for k, v in upd_bar.items()}
+    out["bars"] = {"grad_norm_rel": grad_bar, "update_rel": upd_bar}
     del pipe, pipe_cpu
     torch.cuda.empty_cache()
+    return out
+
+
+def train_vs_cpu(tp, gen, **kw):
+    """`step_vs_cpu`, logged and held to its bars."""
+    return held_to_bars(step_vs_cpu(tp, gen, **kw))
+
+
+def held_to_bars(out):
+    log(f"train step vs CPU: {json.dumps(out)}")
+    bars = out["bars"]
+    assert out["loss_rel"] < 1e-4, out
+    assert all(v < bars["grad_norm_rel"][k] for k, v in out["grad_norm_rel"].items()), out
+    assert all(v < bars["update_rel"][k] for k, v in out["update_rel"].items()), out
+    assert out["bn_stats_rel"] < 1e-4, out
     return out
 
 
@@ -2733,6 +2877,312 @@ def nbody_cli_phase(tp):
     return out
 
 
+def write_cifar10(root, gen):
+    """CIFAR-10 python pickles (data_batch_1..5, test_batch) of random uint8
+    images, CIFAR_PER_FILE each."""
+    import pickle
+
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+    for fname in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        data = torch.randint(0, 256, (CIFAR_PER_FILE, 3 * 32 * 32), generator=gen,
+                             dtype=torch.uint8).numpy()
+        labels = torch.randint(0, 10, (CIFAR_PER_FILE,), generator=gen).tolist()
+        with open(os.path.join(d, fname), "wb") as f:
+            pickle.dump({b"data": data, b"labels": labels}, f)
+
+
+def write_stl10(root, gen):
+    """STL-10 binaries (train_X.bin etc.: 96 x 96 x 3 uint8 images,
+    column-major, labels 1-10) of random images."""
+    d = os.path.join(root, "stl10_binary")
+    os.makedirs(d)
+    for split, n in (("train", STL_TRAIN), ("test", STL_TEST)):
+        torch.randint(0, 256, (n * 3 * 96 * 96,), generator=gen,
+                      dtype=torch.uint8).numpy().tofile(os.path.join(d, f"{split}_X.bin"))
+        torch.randint(1, 11, (n,), generator=gen,
+                      dtype=torch.uint8).numpy().tofile(os.path.join(d, f"{split}_y.bin"))
+
+
+def counted(mods, src_log, path, fn):
+    """fn() with the launch counts of `mods` set to 0 just before it and
+    read just after: (result, {launches, paths, K1 launches by sources,
+    checked}). "checked": the first K1 / K3 / K4 launch of each kind in
+    the run, again on a copy of its inputs after the counts are read,
+    against the plain version (`SourceLog.check`)."""
+    for mod in mods:
+        mod.reset_launches()
+    src_log.start(path, capture=True)
+    try:
+        result = fn()
+        sync()
+    finally:
+        src_log.stop()
+    counts = {
+        "launches": {k: v for mod in mods for k, v in mod.launches.items()},
+        "paths": {k: v for mod in mods for k, v in mod.path_launches.items()},
+        "select_sources": src_log.select_launches(path)}
+    counts["checked"] = src_log.check(path)
+    return result, counts
+
+
+def train_step_flops(tp, model, batch, loss_kw):
+    """Matmul + conv FLOPs of one train step's forward and backward
+    (`count_flops` on meta copies: no device work), under grad mode
+    whatever the caller's."""
+    def fwd_bwd(m, b, g):
+        with torch.enable_grad():
+            logits, info = m(b["image"], training=True, generator=g)
+            loss, _ = tp.classification_loss(logits, b["label"], info, **loss_kw)
+            torch.autograd.grad(loss, [p for p in m.parameters() if p.requires_grad])
+
+    return tp.count_flops(fwd_bwd, model, batch, torch.Generator())
+
+
+def cli_step_times(tp, cli, cfg):
+    """The CLI's own train state and batch: two warm-up steps, then
+    CLI_TIMED_STEPS steps by CUDA events; ms per step, img/s, the steps'
+    peak memory and the step's FLOPs."""
+    state = cli.build_state(cfg, DEVICE)
+    kw = cli.loss_kwargs(cfg)
+    step = tp.make_train_step(kw)
+    batch = next(cli.get_batches(cfg, cli.generator(cfg.experiment.seed, 0, DEVICE), 1,
+                                 device=DEVICE))
+    draws = torch.Generator(device=DEVICE).manual_seed(21)
+    for _ in range(2):
+        step(state, batch, draws)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(CLI_TIMED_STEPS):
+        state, m = step(state, batch, draws)
+    end.record()
+    sync()
+    ms = start.elapsed_time(end) / CLI_TIMED_STEPS
+    bs = cfg.experiment.batch_size
+    out = {"step_ms": ms, "img_per_s": bs / ms * 1e3,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "loss": m["loss/total"].item(),
+           "flops": train_step_flops(tp, state.model, batch, kw)}
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_train_and_test(tp, cli, sw, orb, src_log, name, args, ck):
+    """One epoch of the training CLI with a checkpoint in `ck`, then test
+    mode from it: test/acc equal to the trained state's on the same batch."""
+    t0 = time.perf_counter()
+    state, train_counts = counted((sw, orb), src_log, name, lambda: cli.main(
+        args + [f"checkpoint.checkpoint_path={ck}"], device=DEVICE))
+    out = {"train_s": time.perf_counter() - t0, "train": train_counts,
+           "steps": state.step}
+    with open(os.path.join(ck, "train_log.jsonl")) as f:
+        logged = json.loads(f.read().splitlines()[-1])
+    out["train_loss"] = logged["train/loss/total"]
+    assert math.isfinite(out["train_loss"]), logged
+    test_args = ["experiment.run_mode=test", f"checkpoint.checkpoint_path={ck}"]
+    metrics, test_counts = counted((sw, orb), src_log, f"{name}_test",
+                                   lambda: cli.main(test_args, device=DEVICE))
+    in_process = cli.run_test(cli.compose(test_args), state, DEVICE)
+    out.update(test=metrics, in_process=in_process, test_counts=test_counts)
+    assert abs(metrics["test/acc"] - in_process["test/acc"]) <= 1e-6, out
+    # the validation batch and the test batch run the fp32 eval: K1 on
+    # NCHW memory
+    for counts in (train_counts, test_counts):
+        assert counts["launches"].get("select_planes/float32", 0) >= 1, out
+        assert any(k.startswith("select_planes/float32/") for k in counts["paths"]), out
+    return state, out
+
+
+def config2_args(cfg_dir):
+    """BASELINE config 2's overrides: opt_group_equivariant.yaml on STL-10,
+    the group-contrast loss on."""
+    return [f"config={cfg_dir}/default.yaml", "canonicalization=opt_group_equivariant",
+            "dataset.dataset_name=stl10", "dataset.image_size=96",
+            "experiment.loss.group_contrast_weight=1.0"]
+
+
+def opt_d4_config(cli, args):
+    """Config 2's D4 variant: learned reference vector, artifact dummies 0.1."""
+    return cli.compose(args + ["canonicalization.network_hyperparams.num_rotations=4",
+                               "canonicalization.learn_ref_vec=true",
+                               "canonicalization.artifact_err_wt=0.1"])
+
+
+def opt_d4_step_vs_cpu(tp, cli, cfg, gen):
+    """`step_vs_cpu` of the D4 variant's step (dropout and artifact dummies
+    off: their draws differ by device), with the CPU's own spread: the
+    canonicalizer's update is as far from the CPU's as the CPU's own
+    under a 1e-7 perturbation of the batch (on seeds 23-30, card against
+    CPU 9.5e-4 to 3.4e-3, over phase 12's 1e-3 on seven; the CPU's own
+    1.5e-3 to 3.2e-3: tools/opt_d4_cpu_gap.py on an H100), so each bar is
+    also three times the CPU's own difference, as phase 17's is."""
+    def build():
+        pipe = cli.build_pipeline(cfg, DEVICE)
+        pipe.canonicalizer.canonicalization_network.Dropout_0.rate = 0.0
+        pipe.canonicalizer.artifact_err_wt = 0.0
+        return pipe
+
+    return step_vs_cpu(tp, gen, build=build, spread=True, size=cfg.dataset.image_size,
+                       loss_kw=dict(cli.loss_kwargs(cfg), artifact_err_wt=0.0))
+
+
+def opt_d4_phase(tp, cli, orb, src_log, args):
+    """Optimized D4 training at config 2's widths (learn_ref_vec, artifact
+    dummies 0.1) through `make_train_step`: K4 in every step ("tile"), the
+    loss finite and its task and prior terms falling over OPT_D4_STEPS steps
+    on one batch; one step against the CPU (`opt_d4_step_vs_cpu`) held to
+    its bars."""
+    cfg = opt_d4_config(cli, args)
+    state = cli.build_state(cfg, DEVICE)
+    assert state.model.canonicalizer.reference_vector.requires_grad
+    kw = cli.loss_kwargs(cfg)
+    step = tp.make_train_step(kw)
+    batch = next(cli.get_batches(cfg, cli.generator(cfg.experiment.seed, 0, DEVICE), 1,
+                                 device=DEVICE))
+    draws = torch.Generator(device=DEVICE).manual_seed(22)
+    (state, m), counts = counted((orb,), src_log, "cli_opt_d4",
+                                 lambda: step(state, batch, draws))
+    out = {"launches_per_step": counts["launches"], "paths": counts["paths"],
+           "checked": counts["checked"]}
+    assert counts["launches"] == {"rot90_flip_orbit/float32": 1}, out
+    assert counts["paths"] == {"rot90_flip_orbit/float32/tile": 1}, out
+    rows = [m]
+    for _ in range(OPT_D4_STEPS - 1):
+        state, m = step(state, batch, draws)
+        rows.append(m)
+    out["losses"] = losses = [r["loss/total"].item() for r in rows]
+    assert all(math.isfinite(v) for v in losses), losses
+    # the task and prior terms fall; the group-contrast term (|V V^T| of
+    # unnormalised vectors) jumps after the first step as the vectors grow
+    fit = [r["loss/total"].item() - r["loss/group_contrast"].item() for r in rows]
+    out["task_prior_losses"] = fit
+    assert sum(fit[-3:]) < sum(fit[:3]), fit
+    del state, batch
+    out["vs_cpu"] = held_to_bars(
+        opt_d4_step_vs_cpu(tp, cli, cfg, torch.Generator().manual_seed(23)))
+    log(f"optimized D4 training: {json.dumps({k: v for k, v in out.items() if k != 'vs_cpu'})}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def classification_cli_phase(tp, sw, orb, src_log):
+    """BASELINE configs 1 and 2 through the classification CLIs (phase 19)."""
+    import shutil
+    import tempfile
+
+    from equiadapt_tpu_torch.cli import classification_serve as serve
+    from equiadapt_tpu_torch.cli import classification_train as cli
+
+    cfg_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLS_CONFIGS)
+    gen = torch.Generator().manual_seed(20)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_cifar10(tmp, gen)
+        write_stl10(tmp, gen)
+        # config 1: default.yaml (C4 GCNN 16 x 2, crop 0.9, resize 64,
+        # ResNet-50, batch 128, CIFAR-10 at 32 px)
+        args1 = [f"config={cfg_dir}/default.yaml", f"dataset.data_path={tmp}",
+                 "experiment.num_epochs=1"]
+        ck1 = os.path.join(tmp, "ck1")
+        state1, out["config1"] = cli_train_and_test(tp, cli, sw, orb, src_log,
+                                                    "cli_config1", args1, ck1)
+        ck1g = os.path.join(tmp, "ck1_group")
+        shutil.copytree(ck1, ck1g)
+        with open(os.path.join(ck1g, "config.json")) as f:
+            saved = json.load(f)
+        saved["experiment"]["inference_method"] = "group"
+        with open(os.path.join(ck1g, "config.json"), "w") as f:
+            json.dump(saved, f)
+        group, counts = counted((sw, orb), src_log, "cli_group", lambda: cli.main(
+            ["experiment.run_mode=test", f"checkpoint.checkpoint_path={ck1g}"],
+            device=DEVICE))
+        out["config1"]["group"] = {"metrics": group, **counts}
+        assert counts["launches"].get("rot90_flip_orbit/float32") == 1, counts
+        assert counts["paths"].get("rot90_flip_orbit/float32/tile") == 1, counts
+        assert counts["select_sources"].get("select_planes/float32,1 source", 0) >= 1, counts
+        assert all(math.isfinite(v) for v in group.values()), group
+        out["config1"]["step"] = cli_step_times(tp, cli, cli.compose(args1))
+        # config 2: opt_group_equivariant.yaml (D8, ConvNetwork 5x5, 32
+        # channels, 128-vector, resize 96), ResNet-50, batch 128, STL-10
+        args2 = config2_args(cfg_dir) + [f"dataset.data_path={tmp}",
+                                         "experiment.num_epochs=1"]
+        state2, out["config2"] = cli_train_and_test(
+            tp, cli, sw, orb, src_log, "cli_config2", args2, os.path.join(tmp, "ck2"))
+        assert state2.model.canonicalizer.num_group == 16
+        # D8's orbit is static warps (no K4); its selects take two sources
+        assert "rot90_flip_orbit/float32" not in out["config2"]["train"]["launches"]
+        assert out["config2"]["train"]["select_sources"].get(
+            "select_planes/float32", 0) >= 1, out["config2"]
+        del state2
+        out["config2"]["step"] = cli_step_times(tp, cli, cli.compose(args2))
+        out["opt_d4"] = opt_d4_phase(tp, cli, orb, src_log, args2)
+        # the serving CLI: serving_bf16.yaml at 224 px, fresh weights (K3),
+        # then config 1's checkpoint at its own config
+        served, counts = counted((sw, orb), src_log, "cli_serve", lambda: serve.main(
+            [f"config={cfg_dir}/serving_bf16.yaml", "dataset.image_size=224"],
+            device=DEVICE))
+        del served["pipeline"]
+        out["serve"] = {**served, **counts}
+        assert counts["launches"].get("select_planes_nhwc/bfloat16", 0) >= 1, counts
+        assert any(k.startswith("select_planes_nhwc/bfloat16/") for k in counts["paths"])
+        served1, counts = counted((sw, orb), src_log, "cli_serve_config1", lambda: serve.main(
+            [f"checkpoint.checkpoint_path={ck1}"], device=DEVICE))
+        # the non-strict restore loaded every tensor of the served pipeline
+        # (its parameters stay fp32 under bf16 compute)
+        got, ref = served1.pop("pipeline").state_dict(), state1.model.state_dict()
+        assert got.keys() == ref.keys(), sorted(got.keys() ^ ref.keys())
+        assert all(torch.equal(got[k], ref[k]) for k in ref), [
+            k for k in ref if not torch.equal(got[k], ref[k])]
+        del got, ref, state1
+        out["serve_config1"] = {**served1, **counts, "restored_tensors": True}
+        assert counts["launches"].get("select_planes_nhwc/bfloat16", 0) >= 1, counts
+    log(f"classification CLIs: {json.dumps(out)}")
+    return out
+
+
+def mfu_row(flops, ms, peak, dtype):
+    return {"flops_per_step": flops, "ms": ms, "peak_dtype": dtype,
+            "mfu_pct": None if peak is None else 100.0 * flops / (ms * 1e-3) / peak[dtype]}
+
+
+def mfu_phase(tp, smi, times, cli_out, resnet_bf16):
+    """MFU (bench.py's train_mfu_pct and eval_mfu_pct): counted FLOPs of a
+    step over (its measured time x the card's dense peak for its dtype,
+    PEAK_FLOPS; null for a card missing from the table)."""
+    card = smi.split(",")[0].strip()
+    peak = PEAK_FLOPS.get(card)
+    rows = {}
+    for mode in ("bf16_fast", "fp32_exact"):
+        pipe = build_trainer(tp, mode)
+        batch = {"image": torch.zeros(TRAIN_B, IMAGE, IMAGE, 3, device=DEVICE),
+                 "label": torch.zeros(TRAIN_B, dtype=torch.long, device=DEVICE)}
+        flops = train_step_flops(tp, pipe, batch, {"prior_weight": 100.0})
+        rows[f"train_{mode}"] = mfu_row(
+            flops, times[f"train_{mode}"]["step_ms"], peak,
+            "bfloat16" if mode == "bf16_fast" else "float32")
+        del pipe, batch
+    for key in ("config1", "config2"):
+        step = cli_out[key]["step"]
+        rows[f"cli_{key}"] = mfu_row(step["flops"], step["step_ms"], peak, "float32")
+    x = torch.zeros(B, IMAGE, IMAGE, 3, device=DEVICE)
+    flops = tp.count_flops(lambda m, v: m(v), resnet_bf16, x)
+    rows["eval_resnet50_bf16"] = mfu_row(flops, times["serving"]["resnet50_ms"], peak,
+                                         "bfloat16")
+    rows["eval_resnet50_bf16"]["vs_anchor"] = flops / tp.resnet50_eval_flops(B, IMAGE)
+    out = {"device": smi, "peak_flops": peak,
+           "train_mfu_pct": {k.removeprefix("train_"): v["mfu_pct"] for k, v in rows.items()
+                             if not k.startswith("eval")},
+           "eval_mfu_pct": rows["eval_resnet50_bf16"]["mfu_pct"], "rows": rows}
+    if peak is None:
+        log(f"MFU: no peak rate for {card!r}: MFU null")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -2793,7 +3243,7 @@ def main() -> int:
     orbit_checks = check_orbit_kernel(orb, gen_orbit)
     gen_k3 = torch.Generator().manual_seed(10)
     k3_checks = check_k3_kernel(sw, gen_k3)
-    src_log = SourceLog(sw)
+    src_log = SourceLog(sw, orb)
 
     presets = build_presets(tp)
     presets["serving_nchw"] = presets["serving"]
@@ -3014,7 +3464,8 @@ def main() -> int:
                 times[f"continuous_trainer_{mode}"] = continuous_trainer_phase(
                     tp, sr, bw, mode, gen_ct)
             checks["continuous_train_vs_cpu"] = train_vs_cpu(
-                tp, gen_ct, build=lambda: build_continuous_trainer(tp, "fp32_exact"))
+                tp, gen_ct, build=lambda: build_continuous_trainer(tp, "fp32_exact"),
+                spread=True)
             times["opt_steerable"] = opt_steerable_phase(tp, gen_ct)
         # n-body (phase 18): no kernel of the port lies on its path
         for mod in (sw, sr, bw, kn, orb):
@@ -3027,6 +3478,26 @@ def main() -> int:
         nbody_launches = {k: v for mod in (sw, sr, bw, kn, orb)
                           for k, v in mod.launches.items()}
         assert not nbody_launches, nbody_launches
+        # the classification CLIs (phase 19): each run counted on its own
+        with torch.enable_grad():
+            cli_out = classification_cli_phase(tp, sw, orb, src_log)
+        checks["classification_cli"] = cli_out
+        cli_runs = {"cli_config1": cli_out["config1"]["train"],
+                    "cli_config1_test": cli_out["config1"]["test_counts"],
+                    "cli_group": cli_out["config1"]["group"],
+                    "cli_config2": cli_out["config2"]["train"],
+                    "cli_config2_test": cli_out["config2"]["test_counts"],
+                    "cli_opt_d4": {"launches": cli_out["opt_d4"]["launches_per_step"],
+                                   "paths": cli_out["opt_d4"]["paths"],
+                                   "checked": cli_out["opt_d4"]["checked"]},
+                    "cli_serve": cli_out["serve"],
+                    "cli_serve_config1": cli_out["serve_config1"]}
+        for path, run in cli_runs.items():
+            launches.update({f"{path}:{k}": v for k, v in run["launches"].items()})
+            add_paths(run["paths"])
+            orbit_launches[path] = {k: v for k, v in run["launches"].items()
+                                    if k.startswith("rot90_flip_orbit/")}
+        times["mfu"] = mfu_phase(tp, smi, times, cli_out, presets["serving"][1])
         for key, row in times["continuous_train"].items():
             launches.update({f"continuous_train_{key}:{k}": v
                              for k, v in row["launches"].items()})
@@ -3083,6 +3554,16 @@ def main() -> int:
         kernels += knn_entries(kn, gen_knn, bwidth, rate, pc_counts)
         kernels += orbit_entries(orb, gen_orbit, bwidth, orbit_launches, paths)
         checks["orbit"] = orbit_checks
+        # phase 19's launches, each checked at its own shape (`counted`)
+        cli_checked = [row for run in cli_runs.values() for row in run["checked"]]
+        for entry in kernels:
+            entry["cli_checks"] = [{k: v for k, v in row.items() if k != "kernel"}
+                                   for row in cli_checked if row["kernel"] == entry["name"]]
+        names = {entry["name"] for entry in kernels}
+        assert {row["kernel"] for row in cli_checked} <= names, cli_checked
+        for kname in ("select_planes[float32]", "select_planes[float32,1 source]",
+                      "select_planes_nhwc[bfloat16]", "rot90_flip_orbit[float32]"):
+            assert any(row["kernel"] == kname for row in cli_checked), (kname, cli_checked)
     results.update(launches=launches, checks=checks, times=times,
                    kernels=kernels)
     if args.out:
@@ -3101,6 +3582,19 @@ def main() -> int:
         "simulate_train_ms": nt["simulate_train_ms"],
         "simulate_valid_ms": nt["simulate_valid_ms"],
         "cli_test_mse": checks["nbody_cli"]["test_mse"]}}))
+    cli = checks["classification_cli"]
+    log(json.dumps({"classification_cli": {
+        key: {"train_step_ms": cli[key]["step"]["step_ms"],
+              "train_img_per_s": cli[key]["step"]["img_per_s"],
+              "train_step_peak_mem_gib": cli[key]["step"]["peak_mem_gib"],
+              "epoch_s": cli[key]["train_s"], "test_acc": cli[key]["test"]["test/acc"]}
+        for key in ("config1", "config2")} | {
+        "serving_img_per_s": cli["serve"]["images_per_s"],
+        "serving_warmup_s": cli["serve"]["warmup_s"],
+        "opt_d4_losses": cli["opt_d4"]["losses"]}}))
+    mfu = times["mfu"]
+    log(json.dumps({"mfu": {"device": mfu["device"], "train_mfu_pct": mfu["train_mfu_pct"],
+                            "eval_mfu_pct": mfu["eval_mfu_pct"]}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -66,8 +66,10 @@ from equiadapt_tpu_torch.common import (
 from equiadapt_tpu_torch.images import (
     ContinuousGroupImageCanonicalization,
     ConvNetwork,
+    CustomEquivariantNetwork,
     DiscreteGroupImageCanonicalization,
     EquivariantNetwork,
+    EquivariantWideResNet,
     GroupEquivariantImageCanonicalization,
     OptimizedGroupEquivariantImageCanonicalization,
     OptimizedSteerableImageCanonicalization,
@@ -80,9 +82,12 @@ from equiadapt_tpu_torch.images import (
     steerable_optimization_loss,
 )
 from equiadapt_tpu_torch.data import (
+    batch_iterator,
     generate_nbody_dataset,
     simulate_charged,
     simulate_springs,
+    synthetic_image_batch,
+    synthetic_pointcloud_batch,
 )
 from equiadapt_tpu_torch.models import (
     DGCNN,
@@ -145,6 +150,7 @@ from equiadapt_tpu_torch.utils import (
     load_flax_variables,
     load_yaml,
 )
+from equiadapt_tpu_torch.utils.flops import count_flops, resnet50_eval_flops
 
 __all__ = [
     "BaseCanonicalization",
@@ -162,6 +168,8 @@ __all__ = [
     "OptimizedGroupEquivariantImageCanonicalization",
     "optimization_specific_loss",
     "EquivariantNetwork",
+    "CustomEquivariantNetwork",
+    "EquivariantWideResNet",
     "ConvNetwork",
     "ResNet18Network",
     "WideResNet50Network",
@@ -183,6 +191,9 @@ __all__ = [
     "simulate_charged",
     "simulate_springs",
     "generate_nbody_dataset",
+    "synthetic_image_batch",
+    "synthetic_pointcloud_batch",
+    "batch_iterator",
     "ContinuousGroupPointcloudCanonicalization",
     "EquivariantPointcloudCanonicalization",
     "VNSmall",
@@ -227,4 +238,6 @@ __all__ = [
     "get_nbody_prediction_network",
     "load_flax_variables",
     "flax_variables",
+    "count_flops",
+    "resnet50_eval_flops",
 ]

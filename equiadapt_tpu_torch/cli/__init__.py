@@ -1,1 +1,9 @@
-"""Command-line entry points of the port (`python -m equiadapt_tpu_torch.cli.<name>`)."""
+"""Command-line entry points of the port (`python -m equiadapt_tpu_torch.cli.<name>`):
+`classification_train`, `classification_serve` and `nbody_train`."""
+
+import torch
+
+
+def generator(seed: int, stream: int, device) -> torch.Generator:
+    """The generator of one stream of draws of a run seeded `seed`."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + stream)

@@ -25,6 +25,7 @@ from typing import Dict
 
 import torch
 
+from equiadapt_tpu_torch.cli import generator
 from equiadapt_tpu_torch.data import generate_nbody_dataset
 from equiadapt_tpu_torch.pipelines.nbody import (
     NBodyPipeline,
@@ -50,11 +51,6 @@ CONFIG_DIR = os.path.join(
 # graphs per split; the generator stream of each draw
 SPLITS = {"train": (512, 0), "valid": (128, 1), "test": (128, 2)}
 DROPOUT_STREAM, PERMUTATION_STREAM = 3, 100
-
-
-def generator(seed: int, stream: int, device) -> torch.Generator:
-    """The generator of one stream of draws of a run seeded `seed`."""
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + stream)
 
 
 def dataset_split(cfg: Config, split: str, device) -> Dict[str, torch.Tensor]:

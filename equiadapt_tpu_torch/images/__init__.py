@@ -12,7 +12,9 @@ from equiadapt_tpu_torch.images.canonicalization import (
 )
 from equiadapt_tpu_torch.images.networks import (
     ConvNetwork,
+    CustomEquivariantNetwork,
     EquivariantNetwork,
+    EquivariantWideResNet,
     ResNet18Network,
     SteerableNetwork,
     WideResNet50Network,
@@ -29,7 +31,9 @@ __all__ = [
     "optimization_specific_loss",
     "steerable_optimization_loss",
     "ConvNetwork",
+    "CustomEquivariantNetwork",
     "EquivariantNetwork",
+    "EquivariantWideResNet",
     "ResNet18Network",
     "SteerableNetwork",
     "WideResNet50Network",

@@ -24,12 +24,11 @@ Counterpart of `equiadapt_tpu/images/canonicalization/discrete_group.py`
 regular rep, in training too where the fused invert applies).
 
 `training` is an argument, as in the JAX package; the module mode is not
-read (the optimized variant, whose training is not ported, still raises in
-train mode). Random draws (dropout masks, Gumbel noise) come from the
-`generator` given to `canonicalize`. Not ported yet: co-canonicalized
-targets (boxes and masks, ROADMAP.md item 14) and the optimized variant's
-training. The optimized variant's `orbit_sharding` (a mesh constraint)
-waits for `parallel/` (ROADMAP.md item 16). The JAX package's NCHW-spine
+read. Random draws (dropout masks, Gumbel noise, the optimized variant's
+artifact rotations) come from the `generator` given to `canonicalize`. Not
+ported yet: co-canonicalized targets (boxes and masks, ROADMAP.md item 14).
+The optimized variant's `orbit_sharding` (a mesh constraint) waits for
+`parallel/` (ROADMAP.md item 16). The JAX package's NCHW-spine
 serving branch is a TPU layout path with no counterpart here.
 """
 
@@ -65,12 +64,6 @@ __all__ = [
     "OptimizedGroupEquivariantImageCanonicalization",
     "optimization_specific_loss",
 ]
-
-_OPT_TRAINING = (
-    "training of the optimized canonicalizer is not ported yet (ROADMAP.md "
-    "item 9); call .eval() and canonicalize with training=False"
-)
-
 
 class DiscreteGroupImageCanonicalization(BaseCanonicalization):
     """Base discrete image canonicalizer.
@@ -256,8 +249,14 @@ class OptimizedGroupEquivariantImageCanonicalization(
     quarter turn of a square image, static warps otherwise); the network
     maps it to (G * B, out_vector_size) vectors, and element g of sample b
     scores the cosine of its vector with `reference_vector`, a (1, D)
-    parameter drawn from N(0, 1) (fixed unless `learn_ref_vec`; this
-    variant's training is not ported, and train mode raises). acts = scores.reshape(G, B).T.
+    parameter drawn from N(0, 1) (trained only with `learn_ref_vec`).
+    acts = scores.reshape(G, B).T.
+
+    training=True runs the network in train mode on the orbit (batch
+    statistics, dropout masks from `generator`); the orbit is data, built
+    from the batch alone, so K4 serves training as it serves eval, and the
+    gradient reaches the network through the scores and, through the
+    straight-through selection, the `rotate_discrete` warp of the batch.
 
     With `artifact_err_wt` > 0 each orbit image is also rotated by a random
     element and back (`rotate_discrete`), and the network's vectors of those
@@ -301,14 +300,13 @@ class OptimizedGroupEquivariantImageCanonicalization(
         generator: Optional[torch.Generator] = None,
         artifact_idx: Optional[Tensor] = None,
     ) -> Tuple[Tensor, Dict[str, Any]]:
-        if training or self.training:
-            raise NotImplementedError(_OPT_TRAINING)
         x = self.transformations_before_canonicalization_network_forward(x)
         B = x.shape[0]
         G = self.num_group
         n = self.num_rotations
         x_aug = self.group_augment(x)  # (G * B, h, w, C)
-        vector_out = self.canonicalization_network(x_aug)
+        net = self.canonicalization_network
+        vector_out = net(x_aug, training, generator)
         extras = {"vector_out": vector_out}
         if self.artifact_err_wt:
             # a random rotation and its inverse isolate the warp artifacts
@@ -323,7 +321,7 @@ class OptimizedGroupEquivariantImageCanonicalization(
             oh = F.one_hot(artifact_idx.to(x_aug.device).long(), n).to(x_aug.dtype)
             x_dummy = rotate_discrete(x_aug, oh, n, -1.0, self.padding_mode)
             x_dummy = rotate_discrete(x_dummy, oh, n, 1.0, self.padding_mode)
-            extras["vector_out_dummy"] = self.canonicalization_network(x_dummy)
+            extras["vector_out_dummy"] = net(x_dummy, training, generator)
         ref = self.reference_vector
         vn = vector_out / (
             torch.linalg.vector_norm(vector_out, dim=-1, keepdim=True) + 1e-12)

@@ -8,7 +8,9 @@ from equiadapt_tpu_torch.images.networks.conv import (
     WideResNet101Network,
 )
 from equiadapt_tpu_torch.images.networks.equivariant import (
+    CustomEquivariantNetwork,
     EquivariantNetwork,
+    EquivariantWideResNet,
     FiberBatchNorm,
     fiber_mean_activations,
 )
@@ -30,7 +32,9 @@ __all__ = [
     "ResNet18Network",
     "WideResNet50Network",
     "WideResNet101Network",
+    "CustomEquivariantNetwork",
     "EquivariantNetwork",
+    "EquivariantWideResNet",
     "FiberBatchNorm",
     "fiber_mean_activations",
     "RotationEquivariantConv",

@@ -15,6 +15,8 @@ there.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -22,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Iterator, Sequence
 
 import torch
 
@@ -117,6 +119,23 @@ def whole_words(*tensors) -> bool:
                and t.data_ptr() % 16 == 0 for t in tensors)
 
 
+_SHAPES_ONLY = contextvars.ContextVar("shapes_only", default=False)
+
+
+@contextlib.contextmanager
+def shapes_only() -> Iterator[None]:
+    """Within the block, a wrapper given meta tensors returns an empty
+    result of its kernel's shape (a FLOP count, `utils.flops`: the kernels
+    count no operations, as a Pallas call counts none in the JAX package's
+    count); outside it, meta tensors raise like any device but the CPU and
+    CUDA."""
+    token = _SHAPES_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY.reset(token)
+
+
 def refuse_grad(tensors: Sequence, kernels: str, differentiable: str) -> None:
     """Raise when autograd would need a gradient of a kernel that has no
     backward: grad mode is on and a floating tensor among `tensors` requires
@@ -135,11 +154,12 @@ def refuse_grad(tensors: Sequence, kernels: str, differentiable: str) -> None:
 
 
 def route(tensors: Sequence, kernels: str) -> str:
-    """"cpu" (plain version) or "cuda" (kernel) for a wrapper's tensors;
-    anything else (another device, or devices mixed) raises."""
+    """"cpu" (plain version) or "cuda" (kernel) for a wrapper's tensors, or
+    "meta" for meta tensors inside `shapes_only()`; anything else (another
+    device, or devices mixed) raises."""
     types = {t.device.type for t in tensors}
-    if types == {"cpu"}:
-        return "cpu"
+    if types == {"cpu"} or (types == {"meta"} and _SHAPES_ONLY.get()):
+        return types.pop()
     if types == {"cuda"} and len({t.device for t in tensors}) == 1:
         return "cuda"
     raise RuntimeError(

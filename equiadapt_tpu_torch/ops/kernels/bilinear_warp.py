@@ -93,7 +93,10 @@ def warp_rotate_center_exact(x: Tensor, R: Tensor,
         raise ValueError(f"R of shape ({B}, 2, 2), got {tuple(R.shape)}")
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"padding_mode must be border or zeros, got {padding_mode}")
-    if _build.route([x, R], _KERNELS) == "cpu":
+    where = _build.route([x, R], _KERNELS)
+    if where == "meta":
+        return torch.empty_like(x)
+    if where == "cpu":
         return _warp_center_affine(x, R, padding_mode)
     _build.refuse_grad([x, R], _KERNELS, _DIFFERENTIABLE)
     return _launch(x, R, padding_mode)

@@ -149,7 +149,10 @@ def knn_indices(points: Tensor, k: int) -> Tensor:
     N = points.shape[1]
     if not 1 <= k <= N:
         raise ValueError(f"k must lie in [1, N = {N}], got {k}")
-    if _build.route([points], _KERNELS) == "cpu":
+    where = _build.route([points], _KERNELS)
+    if where == "meta":
+        return points.new_empty((points.shape[0], N, k), dtype=torch.int32)
+    if where == "cpu":
         return knn_indices_plain(points, k)
     return _launch(points, k)
 

@@ -117,11 +117,15 @@ def rot90_flip_orbit(x: Tensor, num_rotations: int = 4,
         raise ValueError(
             f"the exact orbit takes square NHWC images, got {tuple(x.shape)}")
     ks, flips = _elements(num_rotations, reflections, sign)
-    if _build.route([x], _KERNELS) == "cpu":
+    where = _build.route([x], _KERNELS)
+    if where == "meta":
+        return x.new_empty((len(ks),) + tuple(x.shape))
+    if where == "cpu":
         return rot90_flip_orbit_plain(x, num_rotations, reflections, sign)
     _build.refuse_grad([x], "the orbit kernel (K4)",
-                       "a differentiable orbit comes with the optimized "
-                       "canonicalizer's training, ROADMAP.md item 10")
+                       "its callers (the optimized canonicalizer, in training "
+                       "too, and group_inference) hand it data, which needs "
+                       "no gradient")
     return _launch(x.contiguous(), ks, flips)
 
 

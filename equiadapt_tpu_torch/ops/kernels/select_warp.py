@@ -246,7 +246,10 @@ def _select(name: str, sources, src_idx, k_idx, shift=None, refl=None,
     """The kernel `name` on CUDA tensors, its plain version on CPU tensors."""
     tensors = list(sources) + [t for t in (src_idx, k_idx, shift, refl)
                                if t is not None]
-    if _build.route(tensors, "select kernels") == "cpu":
+    where = _build.route(tensors, "select kernels")
+    if where == "meta":
+        return torch.empty_like(sources[0])
+    if where == "cpu":
         if name == _NHWC:
             return select_planes_nhwc_plain(sources, src_idx, k_idx)
         return select_planes_plain(sources, src_idx, k_idx, shift, refl, G, n)

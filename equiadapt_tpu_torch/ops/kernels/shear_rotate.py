@@ -181,7 +181,10 @@ def rot90_centered_select(x: Tensor, k_idx: Tensor, cx: int, cy: int,
         raise ValueError(f"rot90_centered_select needs square images, got {H}x{W}")
     if k_idx.shape != (B,):
         raise ValueError(f"k_idx of shape ({B},), got {tuple(k_idx.shape)}")
-    if _build.route([x, k_idx], _KERNELS) == "cpu":
+    where = _build.route([x, k_idx], _KERNELS)
+    if where == "meta":
+        return torch.empty_like(x)
+    if where == "cpu":
         return rot90_centered_select_plain(x, k_idx, cx, cy, padding_mode)
     _build.refuse_grad([x], "the quarter-turn kernel (K5)", _DIFFERENTIABLE)
     return _launch_select(x, k_idx, cx, cy, padding_mode)
@@ -275,7 +278,10 @@ def shear_rotate_residual(z: Tensor, r: Tensor, cx: float, cy: float,
     B, H, W, C = z.shape
     if r.shape != (B,):
         raise ValueError(f"r of shape ({B},), got {tuple(r.shape)}")
-    if _build.route([z, r], _KERNELS) == "cpu":
+    where = _build.route([z, r], _KERNELS)
+    if where == "meta":
+        return torch.empty_like(z)
+    if where == "cpu":
         return shear_rotate_residual_plain(z, r, cx, cy, padding_mode)
     _build.refuse_grad([z, r], "the three-shear kernel (K6)", _DIFFERENTIABLE)
     return _launch_shear(z, r, cx, cy, padding_mode)

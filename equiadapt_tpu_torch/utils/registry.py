@@ -28,7 +28,9 @@ from equiadapt_tpu_torch.images.canonicalization.discrete_group import (
 )
 from equiadapt_tpu_torch.images.networks import (
     ConvNetwork,
+    CustomEquivariantNetwork,
     EquivariantNetwork,
+    EquivariantWideResNet,
     ResNet18Network,
     SteerableNetwork,
     WideResNet50Network,
@@ -87,8 +89,17 @@ def get_image_canonicalization_network(
                 pool_after_lift=h.pool_after_lift,
                 fused_pool_lift=h.fused_pool_lift, device=device,
             ),
-            "equivariant_wrn": lambda: _not_ported("EquivariantWideResNet", 10),
-            "custom": lambda: _not_ported("CustomEquivariantNetwork", 10),
+            "equivariant_wrn": lambda: EquivariantWideResNet(
+                in_channels=C, out_channels=h.out_channels,
+                kernel_size=h.kernel_size, group_type=h.group_type,
+                num_rotations=h.num_rotations, device=device,
+            ),
+            "custom": lambda: CustomEquivariantNetwork(
+                in_channels=C, out_channels=h.out_channels,
+                kernel_size=h.kernel_size, group_type=h.group_type,
+                num_rotations=h.num_rotations, num_layers=h.num_layers,
+                device=device,
+            ),
         }
     elif t == "steerable":
         nets = {

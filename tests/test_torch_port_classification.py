@@ -168,18 +168,27 @@ def test_registry_prediction_and_pointcloud_factories():
 
 
 @pytest.mark.parametrize("override,item", [
-    ("canonicalization.network_type=equivariant_wrn", "item 10"),
-    ("canonicalization.network_type=custom", "item 10"),
     ("prediction.architecture=vit", "item 14"),
 ])
 def test_registry_names_the_roadmap_item_of_what_is_not_ported(override, item):
     cfg = _cfg(override)
     with pytest.raises(NotImplementedError, match=item):
-        if override.startswith("prediction"):
-            treg.get_image_prediction_network(cfg.prediction, 10, True, device="cpu")
-        else:
-            treg.get_image_canonicalization_network(cfg.canonicalization,
-                                                    (32, 32, 3), device="cpu")
+        treg.get_image_prediction_network(cfg.prediction, 10, True, device="cpu")
+
+
+@pytest.mark.parametrize("network_type,cls", [
+    ("equivariant_wrn", "EquivariantWideResNet"),
+    ("custom", "CustomEquivariantNetwork"),
+])
+def test_registry_builds_the_energy_networks_of_item_10(network_type, cls):
+    """The two GCNN energy networks that raised until item 10 build, and map
+    NHWC images to (B, |G|) activations."""
+    cfg = _cfg(f"canonicalization.network_type={network_type}")
+    net = treg.get_image_canonicalization_network(cfg.canonicalization,
+                                                  (32, 32, 3), device="cpu")
+    assert type(net).__name__ == cls
+    G = cfg.canonicalization.network_hyperparams.num_rotations
+    assert net(torch.zeros(2, 16, 16, 3)).shape == (2, G)
 
 
 def _pipelines(cfg, seed):

@@ -95,7 +95,7 @@ def _k7(x, extra):
 # kernel -> (module, launch attribute, call, extra input, the differentiable
 # route the message names)
 GUARDED = {
-    "K4": (torbit, "_launch", _k4, None, "item 10"),
+    "K4": (torbit, "_launch", _k4, None, "hand it data"),
     "K5": (tsr, "_launch_select", _k5, None, "warp_center_rotation_fast_diff"),
     "K6": (tsr, "_launch_shear", _k6, "r", "warp_center_rotation_fast_diff"),
     "K7": (tbw, "_launch", _k7, "R", "_warp_center_affine"),

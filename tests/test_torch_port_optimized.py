@@ -229,8 +229,18 @@ def test_optimized_canonicalizer_guards():
     canon = tp.OptimizedGroupEquivariantImageCanonicalization(
         net, device="cpu", **canon_kw)
     assert not canon.reference_vector.requires_grad
-    with pytest.raises(NotImplementedError):
-        canon.canonicalize(torch.zeros(2, 24, 24, 3))  # train mode
+    # train mode reads `training`, not the module mode: BatchNorm statistics
+    # update, dropout draws from the generator (and needs one)
+    x = torch.randn(2, 24, 24, 3, generator=torch.Generator().manual_seed(0))
+    mean = net.BatchNorm_0.running_mean.clone()
+    canon.canonicalize(x)  # module in train mode, training=False: eval
+    assert torch.equal(net.BatchNorm_0.running_mean, mean)
+    with pytest.raises(ValueError, match="generator"):
+        canon.canonicalize(x, training=True)
+    _, info = canon.canonicalize(x, training=True,
+                                 generator=torch.Generator().manual_seed(1))
+    assert not torch.equal(net.BatchNorm_0.running_mean, mean)
+    assert info.group_activations.requires_grad
     info = DiscreteCanonicalizationInfo(
         group_activations=torch.zeros(2, 4), onehot=torch.zeros(2, 4),
         element=None, extras={"vector_out": torch.randn(8, 16)})

@@ -195,7 +195,10 @@ def test_port_imports_nothing_of_jax():
                    "images/networks/conv.py", "pipelines/classification.py",
                    "utils/config.py", "utils/registry.py", "common/layers.py",
                    "ops/kernels/select_warp.py", "ops/group_action.py",
-                   "models/resnet.py", "utils/jax_weights.py"):
+                   "models/resnet.py", "utils/jax_weights.py",
+                   "data/synthetic.py", "data/images.py", "data/autoaugment.py",
+                   "utils/flops.py", "utils/profiling.py", "utils/tuner.py",
+                   "cli/classification_train.py", "cli/classification_serve.py"):
         assert f"equiadapt_tpu_torch/{module}" in covered, module
     bad = [
         (str(f.relative_to(REPO)), name)
