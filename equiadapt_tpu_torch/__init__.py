@@ -25,8 +25,13 @@ Ported so far:
   coordinates, and the optimized (self-supervised) steerable canonicalizer
   with `steerable_optimization_loss`;
 * the SO(3) point-cloud path: VNSmall frame estimation (kNN graph by
-  kernel K8) -> Gram-Schmidt -> x @ R^T -> DGCNN (kNN graphs by K8) ->
-  point-valued invert y @ R;
+  kernel K8) -> Gram-Schmidt -> x @ R^T -> PointNet or DGCNN (kNN graphs
+  by K8) -> point-valued invert y @ R, the DGCNN part segmenter
+  (`DGCNNPartSeg`, `PointcloudPartSegPipeline`), and their training: the
+  augmentations, train-mode VN and DGCNN BatchNorm, dropout,
+  `create_pointcloud_state` and `make_pointcloud_train_step`, the
+  ModelNet40 / ShapeNet-Part loaders and the CLIs `python -m
+  equiadapt_tpu_torch.cli.pointcloud_train` and `.partseg_train`;
 * the optimized (orbit-scoring) discrete canonicalizer: the batch's
   |G|-orbit (kernel K4 for quarter turns, static warps otherwise) ->
   `ConvNetwork` -> cosine scores against a reference vector -> select
@@ -45,10 +50,8 @@ Ported so far:
   network runs fastest on (`to_network_layout`), with the config taxonomy
   and the registries.
 
-The point-cloud family and the optimized discrete canonicalizer are eval
-only: call `.eval()` on them. The discrete, continuous and n-body families,
-their networks and the ResNets take `training` as an argument and ignore
-the module mode.
+Every family, its networks and the ResNets take `training` as an argument
+and ignore the torch module mode.
 """
 
 from equiadapt_tpu_torch.common import (
@@ -91,12 +94,14 @@ from equiadapt_tpu_torch.data import (
 )
 from equiadapt_tpu_torch.models import (
     DGCNN,
+    DGCNNPartSeg,
     GNN,
     NBodyMLP,
     NBodyTransformer,
     PointNet,
     ResNet18,
     ResNet50,
+    TransformNet,
 )
 from equiadapt_tpu_torch.nbody import EuclideanGroupNBody, VNDeepSets
 from equiadapt_tpu_torch.ops.group_action import (
@@ -108,16 +113,23 @@ from equiadapt_tpu_torch.pipelines import (
     ImageClassifierPipeline,
     NBodyPipeline,
     PointcloudClassificationPipeline,
+    PointcloudPartSegPipeline,
     TrainState,
     classification_loss,
     create_nbody_state,
+    create_pointcloud_state,
     create_train_state,
     group_inference,
     make_eval_step,
     make_nbody_train_step,
     make_optimizer,
+    make_pointcloud_train_step,
     make_train_step,
     nbody_eval_mse,
+    pointcloud_loss,
+    random_point_dropout,
+    random_rotate,
+    random_scale_shift,
     to_network_layout,
     vanilla_inference,
 )
@@ -150,7 +162,11 @@ from equiadapt_tpu_torch.utils import (
     load_flax_variables,
     load_yaml,
 )
-from equiadapt_tpu_torch.utils.flops import count_flops, resnet50_eval_flops
+from equiadapt_tpu_torch.utils.flops import (
+    count_flops,
+    resnet50_eval_flops,
+    train_step_flops,
+)
 
 __all__ = [
     "BaseCanonicalization",
@@ -183,6 +199,8 @@ __all__ = [
     "ResNet50",
     "PointNet",
     "DGCNN",
+    "DGCNNPartSeg",
+    "TransformNet",
     "GNN",
     "NBodyMLP",
     "NBodyTransformer",
@@ -208,6 +226,13 @@ __all__ = [
     "VNStdFeature",
     "mean_pool",
     "PointcloudClassificationPipeline",
+    "PointcloudPartSegPipeline",
+    "create_pointcloud_state",
+    "make_pointcloud_train_step",
+    "pointcloud_loss",
+    "random_point_dropout",
+    "random_rotate",
+    "random_scale_shift",
     "ImageClassifierPipeline",
     "classification_loss",
     "TrainState",
@@ -239,5 +264,6 @@ __all__ = [
     "load_flax_variables",
     "flax_variables",
     "count_flops",
+    "train_step_flops",
     "resnet50_eval_flops",
 ]

@@ -1,10 +1,16 @@
-"""Data: the n-body simulators, the synthetic batches and (in `data.images`
-and `data.autoaugment`) the image dataset loaders."""
+"""Data: the n-body simulators, the synthetic batches, the point-cloud
+dataset loaders and (in `data.images` and `data.autoaugment`) the image
+dataset loaders."""
 
 from equiadapt_tpu_torch.data.nbody_sim import (
     generate_nbody_dataset,
     simulate_charged,
     simulate_springs,
+)
+from equiadapt_tpu_torch.data.pointcloud import (
+    load_modelnet40,
+    load_shapenet_part,
+    normalize_pointcloud,
 )
 from equiadapt_tpu_torch.data.synthetic import (
     batch_iterator,
@@ -16,6 +22,9 @@ __all__ = [
     "generate_nbody_dataset",
     "simulate_charged",
     "simulate_springs",
+    "load_modelnet40",
+    "load_shapenet_part",
+    "normalize_pointcloud",
     "batch_iterator",
     "synthetic_image_batch",
     "synthetic_pointcloud_batch",

@@ -9,7 +9,13 @@ from equiadapt_tpu_torch.models.egnn import (
     edge_attributes,
     positional_encoding,
 )
-from equiadapt_tpu_torch.models.pointnet import DGCNN, PointNet, get_graph_feature
+from equiadapt_tpu_torch.models.pointnet import (
+    DGCNN,
+    DGCNNPartSeg,
+    PointNet,
+    TransformNet,
+    get_graph_feature,
+)
 from equiadapt_tpu_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
@@ -22,5 +28,5 @@ from equiadapt_tpu_torch.models.resnet import (
 
 __all__ = ["GCL", "GCLRF", "GNN", "NBodyMLP", "NBodyTransformer",
            "edge_attributes", "positional_encoding",
-           "DGCNN", "PointNet", "get_graph_feature", "BasicBlock", "Bottleneck",
+           "DGCNN", "DGCNNPartSeg", "PointNet", "TransformNet", "get_graph_feature", "BasicBlock", "Bottleneck",
            "ResNet", "ResNet18", "ResNet50", "WideResNet50", "WideResNet101"]

@@ -20,8 +20,14 @@ from equiadapt_tpu_torch.pipelines.nbody import (
 )
 from equiadapt_tpu_torch.pipelines.pointcloud import (
     PointcloudClassificationPipeline,
+    PointcloudPartSegPipeline,
     classification_metrics,
+    create_pointcloud_state,
+    make_pointcloud_train_step,
+    pointcloud_loss,
+    random_point_dropout,
     random_rotate,
+    random_scale_shift,
 )
 
 __all__ = ["ImageClassifierPipeline", "TrainState", "classification_loss",
@@ -30,5 +36,7 @@ __all__ = ["ImageClassifierPipeline", "TrainState", "classification_loss",
            "vanilla_inference",
            "NBodyPipeline", "create_nbody_state", "make_nbody_train_step",
            "nbody_eval_mse",
-           "PointcloudClassificationPipeline", "classification_metrics",
-           "random_rotate"]
+           "PointcloudClassificationPipeline", "PointcloudPartSegPipeline",
+           "classification_metrics", "create_pointcloud_state",
+           "make_pointcloud_train_step", "pointcloud_loss",
+           "random_point_dropout", "random_rotate", "random_scale_shift"]

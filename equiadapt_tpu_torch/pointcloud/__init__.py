@@ -1,5 +1,5 @@
 """Point-cloud canonicalization: vector-neuron layers, VNSmall and the
-SO(3) / SE(3) canonicalizers (eval)."""
+SO(3) / SE(3) canonicalizers."""
 
 from equiadapt_tpu_torch.pointcloud.canonicalization import (
     ContinuousGroupPointcloudCanonicalization,

@@ -1,5 +1,5 @@
 """SO(3) / SE(3) point-cloud canonicalization by vector-neuron frame
-estimation, eval path.
+estimation.
 
 Counterpart of `equiadapt_tpu/pointcloud/canonicalization.py`. Points are
 (B, N, 3) rows; the network gives three equivariant vectors per cloud,
@@ -7,6 +7,9 @@ Gram-Schmidt makes them the rows of R, and x_canon = (x - t) @ R^T: each
 point in the estimated frame. Rotation only by default (SO(3));
 `enable_translation=True` removes the centroid t first (SE(3)). Reflections
 are not handled: VNSmall's cross-product features flip sign under them.
+`training` (train-mode BatchNorm, dropout) and the dropout `generator` go
+to the network; the prior loss reads the info
+(`common.info.prior_regularization_loss`).
 """
 
 from __future__ import annotations
@@ -30,12 +33,6 @@ __all__ = [
     "EquivariantPointcloudCanonicalization",
 ]
 
-_TRAINING = (
-    "training is not ported yet (ROADMAP.md item 12, point-cloud training); "
-    "call .eval() and canonicalize with training=False"
-)
-
-
 class ContinuousGroupPointcloudCanonicalization(BaseCanonicalization):
     """Base continuous point-cloud canonicalizer."""
 
@@ -45,17 +42,18 @@ class ContinuousGroupPointcloudCanonicalization(BaseCanonicalization):
         self.canonicalization_network = canonicalization_network
         self.enable_translation = enable_translation
 
-    def get_groupelement(self, x: Tensor) -> Tuple[ContinuousGroupElement, Tensor]:
+    def get_groupelement(self, x: Tensor, training: bool = False,
+                         generator: Optional[torch.Generator] = None,
+                         ) -> Tuple[ContinuousGroupElement, Tensor]:
         """Subclass hook: (element, matrix rep)."""
         raise NotImplementedError
 
     def canonicalize(self, x: Tensor, targets: Optional[Any] = None, *,
-                     training: bool = False, **kwargs: Any):
+                     training: bool = False,
+                     generator: Optional[torch.Generator] = None, **kwargs: Any):
         """(B, N, 3) clouds -> `(x_canon, info)`, or `(x_canon, targets,
         info)` with targets passed through; x_canon = (x - t) @ R^T."""
-        if training or self.training:
-            raise NotImplementedError(_TRAINING)
-        element, matrix_rep = self.get_groupelement(x)
+        element, matrix_rep = self.get_groupelement(x, training, generator)
         if self.enable_translation:
             x = x - element.translation[:, None, :]
         x_canon = torch.einsum("bnd,bkd->bnk", x, element.rotation)
@@ -80,13 +78,15 @@ class ContinuousGroupPointcloudCanonicalization(BaseCanonicalization):
 class EquivariantPointcloudCanonicalization(ContinuousGroupPointcloudCanonicalization):
     """Frame from a VN network (for example VNSmall) and Gram-Schmidt."""
 
-    def get_groupelement(self, x: Tensor):
+    def get_groupelement(self, x: Tensor, training: bool = False,
+                         generator: Optional[torch.Generator] = None):
         translation = None
         if self.enable_translation:
             # the centroid: the network then sees a centred cloud, so the
             # rotation estimate does not depend on the translation
             translation = torch.mean(x, dim=1)  # (B, 3)
             x = x - translation[:, None, :]
-        rotation = gram_schmidt(self.canonicalization_network(x))
+        rotation = gram_schmidt(self.canonicalization_network(
+            x, training=training, generator=generator))
         element = ContinuousGroupElement(rotation=rotation, translation=translation)
         return element, rotation

@@ -1,6 +1,6 @@
 """VN-Small frame estimator and kNN graph features for point clouds.
 
-Counterpart of `equiadapt_tpu/pointcloud/networks.py`, eval path.
+Counterpart of `equiadapt_tpu/pointcloud/networks.py`.
 
 `knn_indices` takes the JAX package's three modes, "exact", "approx" and
 "fused", and all three compute one function here: exact kNN by negative
@@ -10,7 +10,10 @@ version. The JAX modes differ only in how a TPU computes the function
 (`lax.top_k`, `lax.approx_max_k`, the Pallas kernel); off a TPU,
 `approx_max_k` is exact too, and the port has no backend switch. The JAX
 fallback for shapes the TPU tile cannot take has no counterpart: K8 takes
-every shape within its stated limits and raises beyond them.
+every shape within its stated limits and raises beyond them. The indices
+carry no gradient, in either package: `knn_indices` reads a detached input,
+so training builds no autograd graph of the plain version's (B, N, N)
+distances.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from equiadapt_tpu_torch.common.layers import Dropout
 from equiadapt_tpu_torch.ops.kernels import knn as knn_kernel
 from equiadapt_tpu_torch.pointcloud.vector_neurons import (
     VNBatchNorm,
@@ -34,19 +38,14 @@ __all__ = ["knn_indices", "graph_feature_cross", "gather_neighbors", "VNSmall"]
 
 KNN_MODES = ("exact", "approx", "fused")
 
-_TRAINING = (
-    "training is not ported yet (ROADMAP.md item 12, point-cloud training); "
-    "call .eval()"
-)
-
 
 def knn_indices(points: Tensor, k: int, mode: str = "exact") -> Tensor:
     """(B, N, D) points -> (B, N, k) int32 indices of the k nearest points by
     negative squared distance, nearest first, self included. Every mode runs
-    K8 (module docstring)."""
+    K8 on the detached points (module docstring)."""
     if mode not in KNN_MODES:
         raise ValueError(f"knn mode must be one of {KNN_MODES}, got {mode!r}")
-    return knn_kernel.knn_indices(points.contiguous(), k)
+    return knn_kernel.knn_indices(points.detach().contiguous(), k)
 
 
 def gather_neighbors(x: Tensor, idx: Tensor) -> Tensor:
@@ -77,11 +76,12 @@ class VNSmall(nn.Module):
     """Small VN frame estimator: (B, N, 3) clouds -> (B, 3, 3), rows three
     equivariant vectors. conv_pos on kNN cross features, pool over the
     neighbours (mean, or VNMaxPool `pool`), conv1, bn1, conv2 (4 channels),
-    mean over points, the first 3 channels. Eval only: dropout is the
-    identity there, so the module has no dropout rate."""
+    dropout (in training, its mask from `generator`), mean over points, the
+    first 3 channels."""
 
     def __init__(self, n_knn: int = 20, pooling: str = "mean",
-                 knn_mode: str = "exact", device="cuda"):
+                 knn_mode: str = "exact", dropout_rate: float = 0.5,
+                 device="cuda"):
         super().__init__()
         if pooling not in ("mean", "max"):
             raise ValueError(f"Pooling type {pooling} not supported")
@@ -100,19 +100,21 @@ class VNSmall(nn.Module):
         self.bn1 = VNBatchNorm(width, device=device)
         self.conv2 = VNLinearLeakyReLU(width, 12 // 3, negative_slope=0.0,
                                        device=device)
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, point_cloud: Tensor) -> Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAINING)
+    def forward(self, point_cloud: Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         x = point_cloud[..., None]  # (B, N, 3, 1)
         feat = graph_feature_cross(x, k=self.n_knn, knn_mode=self.knn_mode)
-        out = self.conv_pos(feat)  # (B, N, k, 3, C)
+        out = self.conv_pos(feat, training=training)  # (B, N, k, 3, C)
         if self.pooling == "max":
             B, N, k, three, C = out.shape
             pooled = self.pool(out.reshape(B * N, k, three, C)).reshape(
                 B, N, three, C)
         else:
             pooled = mean_pool(out, axis=2)
-        h = self.conv2(self.bn1(self.conv1(pooled)))
+        h = self.bn1(self.conv1(pooled, training=training), training=training)
+        h = self.conv2(h, training=training)
+        h = self.dropout(h, training=training, generator=generator)
         v = torch.mean(h, dim=1)  # (B, 3, 4)
         return v.transpose(-1, -2)[:, :3]

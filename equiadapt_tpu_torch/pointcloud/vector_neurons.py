@@ -1,4 +1,4 @@
-"""Vector-neuron (VN) layers: SO(3)-equivariant point features, eval path.
+"""Vector-neuron (VN) layers: SO(3)-equivariant point features.
 
 Counterpart of `equiadapt_tpu/pointcloud/vector_neurons.py`. Features are
 channels-last, (B, N[, k], 3, C): C 3-vectors per point, as in the JAX
@@ -12,7 +12,10 @@ Flax names (`map_to_feat`, `batchnorm`, `map_to_dir`, `BatchNorm_0`,
 `vn1`, `vn2`, `vn_lin`), so `utils.jax_weights.load_flax_variables` carries
 weights across by path.
 
-Eval only: `BatchNormLastAxis` raises in train mode.
+`training` is an argument, as in the JAX package, and the torch module
+mode is not read: in training `BatchNormLastAxis` normalizes with batch
+statistics and updates its running ones (Flax's semantics,
+`common.layers.BatchNorm`).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Tuple
 
 import torch
 from torch import nn
+
+from equiadapt_tpu_torch.common.layers import BatchNorm
 
 Tensor = torch.Tensor
 
@@ -45,21 +50,17 @@ def _linear(in_features: int, out_features: int, device) -> nn.Linear:
     return nn.Linear(in_features, out_features, bias=False, device=device)
 
 
-class BatchNormLastAxis(nn.BatchNorm1d):
+class BatchNormLastAxis(BatchNorm):
     """Flax `nn.BatchNorm` on (..., C): statistics per channel of the last
-    axis, applied to the input flattened to (-1, C); eps 1e-5. Eval only,
-    so the momentum (Flax's m is torch's 1 - m) is not taken yet."""
+    axis, over the input flattened to (-1, C); eps 1e-5. `momentum` is
+    Flax's (0.99 by default; `VNBatchNorm` takes 0.9)."""
 
-    def __init__(self, num_features: int, device="cuda"):
-        super().__init__(num_features, eps=1e-5, device=device)
+    def __init__(self, num_features: int, momentum: float = 0.99, device="cuda"):
+        super().__init__(num_features, momentum=momentum, device=device)
 
-    def forward(self, x: Tensor) -> Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm training (batch statistics) is not ported yet; "
-                "call .eval()"
-            )
-        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
+        flat = x.reshape(-1, x.shape[-1])
+        return super().forward(flat, training=training).reshape(x.shape)
 
 
 class VNLinear(nn.Module):
@@ -138,15 +139,17 @@ class VNSoftplus(nn.Module):
 
 class VNBatchNorm(nn.Module):
     """Batch-normalized vector norms, directions kept: norm + EPS over the
-    vector axis, `BatchNorm_0` over the channels, x / norm * norm_bn."""
+    vector axis, `BatchNorm_0` (Flax momentum 0.9) over the channels,
+    x / norm * norm_bn."""
 
     def __init__(self, num_channels: int, device="cuda"):
         super().__init__()
-        self.BatchNorm_0 = BatchNormLastAxis(num_channels, device=device)
+        self.BatchNorm_0 = BatchNormLastAxis(num_channels, momentum=0.9,
+                                             device=device)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         norm = torch.linalg.vector_norm(x, dim=-2) + EPS  # (..., C)
-        norm_bn = self.BatchNorm_0(norm)
+        norm_bn = self.BatchNorm_0(norm, training=training)
         return x / norm[..., None, :] * norm_bn[..., None, :]
 
 
@@ -165,10 +168,10 @@ class VNLinearLeakyReLU(nn.Module):
         self.map_to_dir = _linear(
             in_channels, 1 if share_nonlinearity else out_channels, device)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         p = self.map_to_feat(x)
         if self.batchnorm is not None:
-            p = self.batchnorm(p)
+            p = self.batchnorm(p, training=training)
         return _leaky_project(p, self.map_to_dir(x), self.negative_slope)
 
 
@@ -209,8 +212,9 @@ class VNStdFeature(nn.Module):
         self.vn2 = VNLinearLeakyReLU(C // 2, C // 4, **common)
         self.vn_lin = _linear(C // 4, 2 if normalize_frame else 3, device)
 
-    def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
-        z = self.vn_lin(self.vn2(self.vn1(x)))  # (..., 3, out_ch)
+    def forward(self, x: Tensor, training: bool = False) -> Tuple[Tensor, Tensor]:
+        z = self.vn2(self.vn1(x, training=training), training=training)
+        z = self.vn_lin(z)  # (..., 3, out_ch)
         z0 = z.transpose(-1, -2)  # (..., out_ch, 3): frame vectors as rows
         if self.normalize_frame:
             v1 = z0[..., 0, :]

@@ -16,7 +16,9 @@ hand-written kernels count 0, as Pallas calls do in the JAX walker.
 
 A backward pass counts when `fn` runs one (`torch.autograd.grad` on the
 loss): a training step's matmul work is its forward and backward; the
-optimizer's update is elementwise.
+optimizer's update is elementwise. `train_step_flops(loss_fn, model,
+*inputs)` counts that for any step whose loss is `loss_fn(model, *inputs)`
+(the point-cloud classification and part-segmentation steps, for MFU).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from equiadapt_tpu_torch.ops.kernels import _build
 
-__all__ = ["count_flops", "resnet50_eval_flops"]
+__all__ = ["count_flops", "train_step_flops", "resnet50_eval_flops"]
 
 
 def _to_meta(tree: Any, memo: dict) -> Any:
@@ -59,6 +61,19 @@ def count_flops(fn, *args, **kwargs) -> float:
     with _build.shapes_only(), FlopCounterMode(display=False) as counter:
         fn(*margs, **mkwargs)
     return float(counter.get_total_flops())
+
+
+def train_step_flops(loss_fn, model: nn.Module, *inputs) -> float:
+    """Matmul + convolution FLOPs of one training step's forward and
+    backward: `loss_fn(model, *inputs)` -> scalar loss, then its gradient
+    to every trainable parameter, on meta copies (grad mode on whatever
+    the caller's)."""
+    def fwd_bwd(m, *args):
+        with torch.enable_grad():
+            loss = loss_fn(m, *args)
+            torch.autograd.grad(loss, [p for p in m.parameters() if p.requires_grad])
+
+    return count_flops(fwd_bwd, model, *inputs)
 
 
 def resnet50_eval_flops(batch: int, image: int = 224) -> float:

@@ -410,19 +410,28 @@ def test_classification_metrics_match_jax():
 
 
 def test_training_and_targets_raise():
-    canon = tp.EquivariantPointcloudCanonicalization(tp.VNSmall(8, device="cpu"))
-    x = torch.zeros(2, 16, 3)
-    with pytest.raises(NotImplementedError, match="eval"):
-        canon.canonicalize(x)  # a fresh module is in train mode
-    canon.eval()
-    with pytest.raises(NotImplementedError):
-        canon.canonicalize(x, training=True)
-    for module, arg in ((tp.VNSmall(8, device="cpu"), x),
-                        (tp.DGCNN(4, 4, 16, device="cpu"), x),
-                        (tp.PointNet(4, 16, device="cpu"), x),
-                        (tvn.VNBatchNorm(2, device="cpu"), torch.zeros(2, 3, 2))):
-        with pytest.raises(NotImplementedError):
-            module(arg)
+    """Training is ported and the module mode is not read: a module in
+    either mode gives the eval output unless training=True is passed; in
+    training, dropout above rate 0 needs a generator. Bad options still
+    raise."""
+    x = torch.randn(2, 16, 3)
+    for module in (tp.VNSmall(8, device="cpu"), tp.DGCNN(4, 4, 16, device="cpu"),
+                   tp.PointNet(4, 16, device="cpu")):
+        module.train()
+        y_train_mode = module(x)
+        module.eval()
+        torch.testing.assert_close(module(x), y_train_mode, rtol=0, atol=0)
+        with pytest.raises(ValueError, match="generator"):
+            module(x, training=True)
+        out = module(x, training=True, generator=torch.Generator().manual_seed(0))
+        assert torch.isfinite(out).all()
+    canon = tp.EquivariantPointcloudCanonicalization(
+        tp.VNSmall(8, dropout_rate=0.0, device="cpu"))
+    xc, _ = canon.canonicalize(x)  # a fresh module is in train mode
+    xt, _ = canon.canonicalize(x, training=True)
+    assert xc.shape == xt.shape == x.shape
+    bn = tvn.VNBatchNorm(2, device="cpu")
+    assert bn(torch.ones(2, 3, 2), training=True).shape == (2, 3, 2)
     with pytest.raises(ValueError):
         tp.VNSmall(8, pooling="sum", device="cpu")
     with pytest.raises(ValueError):

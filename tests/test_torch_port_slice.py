@@ -198,7 +198,9 @@ def test_port_imports_nothing_of_jax():
                    "models/resnet.py", "utils/jax_weights.py",
                    "data/synthetic.py", "data/images.py", "data/autoaugment.py",
                    "utils/flops.py", "utils/profiling.py", "utils/tuner.py",
-                   "cli/classification_train.py", "cli/classification_serve.py"):
+                   "cli/classification_train.py", "cli/classification_serve.py",
+                   "data/pointcloud.py", "cli/pointcloud_train.py",
+                   "cli/partseg_train.py"):
         assert f"equiadapt_tpu_torch/{module}" in covered, module
     bad = [
         (str(f.relative_to(REPO)), name)
