@@ -256,11 +256,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and `partseg_train` (one epoch), each then in test mode from its
    checkpoint, with test metrics equal to the trained state's; each run
    counted on its own, its first K8 launch of each kind checked again
-   against the plain version (`KnnLog`).
+   against the plain version (`KnnLog`);
+21. BASELINE config 5, prior-regularized SAM segmentation, at the ViT-B
+   encoder's width (examples/images/segmentation/configs/default.yaml's
+   canonicalizer: C4 GCNN 64 x 12, kernel 5, crop 0.8, resize 128;
+   the registry's "sam_vit" SAMLite: SAM's encoder 12 x 768, window 14,
+   global blocks 2, 5, 8, 11, 8 heads shared with the 256-wide decoder,
+   4 mask tokens; random weights): K1a on (8, 4, 1024, 1024) fp32 mask
+   planes (word path, and a misaligned view: element path) and K3 on
+   (8, 1024, 1024, 3) fp32 images (tile path), bit-equal to their plain
+   versions and timed beside their bounds, plain versions and
+   `torch.gather`; the eval (batch 8 at 1024 px, 4 box prompts:
+   canonicalize images and targets -> SAMLite -> `invert_masks`), launch
+   counts zeroed before it and read after (K3 once on the images, K1a on
+   the masks and on the inverted masks; asserted with their paths),
+   outputs finite, the first sample against the port's CPU run, the C4
+   shift of the selection and equal canonical images and masks under
+   rot90; times of canonicalize with targets, the encoder, the decoder,
+   the invert and the whole eval, peak memory; the mAP sweep over the 4
+   rotations; the prior-regularized train step at batch 4 (AdamW 8e-4,
+   prior 100; no kernel launch: the one-hot blend), every module moved,
+   ms, peak memory; one step at encoder depth 2, 256 px, batch 2 against
+   the CPU with phase 12's bars (raised to three times the CPU's own
+   spread where larger); the segmentation CLI as the JAX one cuts it,
+   train one epoch then test from the checkpoint, each run counted and
+   its first K3 launches checked again.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
-n-body, classification-CLI, MFU and point-cloud-training JSON lines, the
+n-body, classification-CLI, MFU, point-cloud-training and segmentation
+JSON lines, the
 nvidia-smi line and the `kernels` JSON line.
 """
 
@@ -384,6 +409,14 @@ KNN_TRAIN_CASES = {"B32_N2048_D3": (PS_B, PS_N, 3, False),
 # Core GPU datasheet, H100 SXM column: BF16 Tensor Core 989.4 TFLOP/s
 # without sparsity, FP32 66.9 TFLOP/s (TF32 is off here)
 PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {"bfloat16": 989.4e12, "float32": 66.9e12}}
+# phase 21: BASELINE config 5 (examples/images/segmentation/configs/
+# default.yaml) at 1024 px: eval batch 8 of 4 box prompts, SAMLite with SAM's
+# ViT-B-wide encoder (12 x 768) and 8 heads (the registry shares the count
+# with the 256-wide decoder, and 12 does not divide 256); the train step at
+# batch 4; the step against the CPU at encoder depth 2, 256 px, batch 2
+SEG_B, SEG_IMAGE, SEG_PROMPTS, SEG_HEADS, SEG_TRAIN_B = 8, 1024, 4, 8, 4
+SEG_CPU_B, SEG_CPU_IMAGE = 2, 256
+SEG_CONFIG = os.path.join("examples", "images", "segmentation", "configs", "default.yaml")
 
 
 def log(*a):
@@ -3736,6 +3769,388 @@ def pointcloud_train_phase(tp, kn, knn_log, bwidth, rate, peak):
     return out
 
 
+
+def seg_batch(tp, seed, b, size=None, device=None):
+    """The rectangles task (4 box prompts an image, SEG_IMAGE px unless
+    `size`), drawn on `device` (the card unless given)."""
+    gen = torch.Generator(device=device or DEVICE).manual_seed(seed)
+    return tp.synthetic_coco_batch(gen, b, image_size=size or SEG_IMAGE,
+                                   num_prompts=SEG_PROMPTS)
+
+
+def seg_to(batch, device, m=None):
+    """The first m samples of a batch on `device`."""
+    cut = slice(None) if m is None else slice(0, m)
+    return {"image": batch["image"][cut].to(device),
+            "targets": {k: v[cut].to(device) for k, v in batch["targets"].items()}}
+
+
+def build_segmentation(tp, image=None, depth=12, seed=70, dropout=None):
+    """BASELINE config 5: examples/images/segmentation/configs/default.yaml's
+    canonicalizer (C4 GCNN 64 x 12, kernel 5, crop 0.8, resize 128) built by
+    the port's registry, and the registry's "sam_vit" SAMLite (SAM's ViT
+    encoder at 64 * depth wide, 8 heads shared with the 256-wide decoder,
+    4 mask tokens), random weights from `seed`. `dropout` overrides the
+    canonicalization network's dropout rate."""
+    from equiadapt_tpu_torch.common.layers import Dropout
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = tp.compose_config([f"config={os.path.join(here, SEG_CONFIG)}"])
+    torch.manual_seed(seed)
+    image = image or SEG_IMAGE
+    in_shape = (image, image, 3)
+    net = tp.get_image_canonicalization_network(cfg.canonicalization, in_shape,
+                                                device=DEVICE)
+    if dropout is not None:
+        for m in net.modules():
+            if isinstance(m, Dropout):
+                m.rate = dropout
+    canon = tp.get_image_canonicalizer(cfg.canonicalization, net, in_shape, device=DEVICE)
+    sam = tp.get_segmentation_prediction_network(
+        "sam_vit", image, embed_dim=256, encoder_depth=depth, decoder_depth=2,
+        num_heads=SEG_HEADS, patch_size=16, device=DEVICE)
+    return tp.ImageSegmentationPipeline(canon, sam)
+
+
+def seg_eval(pipe, batch):
+    """canonicalize images and targets -> SAMLite -> invert the masks."""
+    (x_c, t_c, masks, ious), info = pipe(batch["image"], batch["targets"])
+    return x_c, t_c, masks, ious, info, pipe.invert_masks(info, masks)
+
+
+def seg_kernel_rows(sw, bwidth):
+    """K1a on the path's mask planes ((B, N, 1024, 1024) fp32, one source:
+    the word path, and a misaligned view: the element path) and K3 on its
+    images ((B, 1024, 1024, 3) fp32, NHWC: the tile path), each bit-equal
+    to its plain version (NaN payload and -0.0 included), timed beside its
+    bound, its plain version and one torch.gather of the same permutation
+    (medians of WINDOWS windows; timed on finite values, which the yardstick
+    compares with torch.equal)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(71)
+    k = torch.randint(0, 4, (SEG_B,), generator=gen, device=DEVICE).int()
+    src = torch.zeros_like(k)
+    rows = {}
+    cases = {
+        "select_planes": (SEG_B, SEG_PROMPTS, SEG_IMAGE, SEG_IMAGE),
+        "select_planes_nhwc": (SEG_B, SEG_IMAGE, SEG_IMAGE, 3)}
+    for name, shape in cases.items():
+        x = with_payloads(torch.randn(*shape, generator=gen, device=DEVICE))
+        views = {"aligned": x}
+        if name == "select_planes":
+            views["misaligned"] = misaligned(x)
+        paths = {}
+        for view, xv in views.items():
+            sw.reset_launches()
+            got = kernel_call(sw, name, [xv], src, k, None)
+            ref = plain_call(sw, name, [xv], src, k, None)
+            sync()
+            assert torch.equal(orbit_bits(got), orbit_bits(ref)), (name, view)
+            (path,) = sw.path_launches
+            paths[view] = path.split("/")[-1]
+        expect = ({"aligned": "word", "misaligned": "element"} if name == "select_planes"
+                  else {"aligned": "tile"})
+        assert paths == expect, (name, paths)
+        x = torch.randn(*shape, generator=gen, device=DEVICE)  # no NaN: the yardstick
+        run = lambda: kernel_call(sw, name, [x], src, k, None)
+        plain = lambda: plain_call(sw, name, [x], src, k, None)
+        got = run()
+        lib = gather_call(sw, name, [x], src, k, None, got)
+        timed = windowed_ms({"ms": run, "library_ms": lib}, reps=10)
+        del lib
+        nbytes = 2 * got.numel() * got.element_size() + 2 * k.numel() * k.element_size()
+        rows[name] = {"shape": list(shape), "paths": paths, "max_abs_err": 0.0, **timed,
+                      "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+                      "bound_ms": nbytes / bwidth * 1e3, "bytes": nbytes}
+        del x, views, got, ref
+    sw.reset_launches()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def clear_margins(acts, rel=1e-3):
+    """Samples whose top-2 group activations differ by more than `rel` of
+    their largest magnitude (config 5's 12-layer GCNN with random weights
+    gives activations near 1e-5, whose top-2 gaps are about 1e-7)."""
+    top2 = acts.sort(dim=-1).values[:, -2:]
+    return (top2[:, 1] - top2[:, 0]) > rel * acts.abs().amax(dim=-1)
+
+
+def seg_vs_cpu(pipe, batch, out, m=1):
+    """The first m samples against the port's CPU run (plain kernels): the
+    same element where the CPU's top-2 margin is clear (`clear_margins`); then the
+    canonical images and masks equal (exact selects), boxes within 1e-3 px,
+    and the mask logits, IoU predictions and inverted masks within 1e-3 of
+    their largest magnitude (a 12-block fp32 ViT: cuBLAS against the CPU's
+    summation orders)."""
+    x_c, t_c, masks, ious, info, back = out
+    cpu = copy.deepcopy(pipe).to("cpu")
+    r = seg_eval(cpu, seg_to(batch, "cpu", m))
+    acts = r[4].group_activations
+    clear = bool(clear_margins(acts).all())
+    same = bool((info.onehot[:m].argmax(-1).cpu() == r[4].onehot.argmax(-1)).all())
+    assert same or not clear, (info.group_activations[:m], acts)
+
+    def rel(a, b):
+        return ((a[:m].cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    res = {"samples": m, "same_element": same, "clear_margin": clear,
+           "max_abs_act": (info.group_activations[:m].cpu() - acts).abs().max().item(),
+           "max_rel_masks": rel(masks, r[2]), "max_rel_ious": rel(ious, r[3]),
+           "max_rel_inverted": rel(back, r[5])}
+    if same:
+        res["image_equal"] = torch.equal(x_c[:m].cpu(), r[0])
+        res["target_masks_equal"] = torch.equal(t_c["masks"][:m].cpu(), r[1]["masks"])
+        res["max_abs_boxes"] = (t_c["boxes"][:m].cpu() - r[1]["boxes"]).abs().max().item()
+        assert res["image_equal"] and res["target_masks_equal"], res
+        assert res["max_abs_boxes"] < 1e-3, res
+        assert max(res["max_rel_masks"], res["max_rel_ious"],
+                   res["max_rel_inverted"]) < 1e-3, res
+    del cpu
+    return res
+
+
+def seg_equivariance(tp, pipe, batch, info):
+    """Canonicalizing torch.rot90 of the images, with the targets turned
+    alike (`rotate_masks` by +90, `rotate_boxes` by -90 degrees), selects
+    the next element for >= 99% of the samples whose top-2 margins are
+    clear (`clear_margins`) in both runs, with the same canonical images (exact), the
+    same canonical masks within 1e-4 (the bilinear mask rotation at a
+    quarter turn) and boxes within 1e-3 px."""
+    from equiadapt_tpu_torch.ops.boxes import rotate_boxes, rotate_masks
+
+    x, t = batch["image"], batch["targets"]
+    B, W = x.shape[0], x.shape[2]
+    t_rot = {**t, "masks": rotate_masks(t["masks"], torch.full((B,), 90.0, device=DEVICE)),
+             "boxes": rotate_boxes(t["boxes"], torch.full((B,), -90.0, device=DEVICE), W)}
+    canon = pipe.canonicalizer
+    x_c, t_c, _ = canon(x, t)
+    x_r, t_r, info_r = canon(torch.rot90(x, 1, dims=(1, 2)).contiguous(), t_rot)
+
+    ok = clear_margins(info.group_activations) & clear_margins(info_r.group_activations)
+    sel, sel_r = info.onehot.argmax(-1), info_r.onehot.argmax(-1)
+    shifted = ok & (sel_r == (sel + 1) % 4)
+    share = (shifted.sum() / ok.sum().clamp(min=1)).item()
+
+    def gap(a, b):
+        return (a[shifted] - b[shifted]).abs().amax().item() if shifted.any() else 0.0
+
+    res = {"clear": int(ok.sum()), "share_shifted": share,
+           "selected": sel.tolist(), "selected_rot90": sel_r.tolist(),
+           "image_equal": torch.equal(x_r[shifted], x_c[shifted]),
+           "max_abs_masks": gap(t_r["masks"], t_c["masks"]),
+           "max_abs_boxes": gap(t_r["boxes"], t_c["boxes"])}
+    assert ok.sum() >= B // 2 and share >= 0.99 and res["image_equal"], res
+    assert res["max_abs_masks"] < 1e-4 and res["max_abs_boxes"] < 1e-3, res
+    return res
+
+
+def seg_times(pipe, batch):
+    """CUDA-event times (ms, 3 calls after a warm-up) of the eval path's
+    parts and of the whole call, and the eval's peak memory."""
+    canon, sam = pipe.canonicalizer, pipe.prediction_network
+    x, t = batch["image"], batch["targets"]
+    x_c, t_c, info = canon(x, t)
+    emb = sam.image_encoder()(x_c)
+    H = x.shape[1]
+
+    def decoder():
+        sparse = sam.PromptEncoderLite_0(t_c["boxes"], (H, H))
+        low, _ = sam.MaskDecoderLite_0(emb, sparse)
+        return low
+
+    masks, _ = sam(x_c, t_c["boxes"])
+    out = {"canonicalize_targets_ms": cuda_ms(lambda: canon(x, t), reps=3, warmup=1),
+           "encoder_ms": cuda_ms(lambda: sam.image_encoder()(x_c), reps=3, warmup=1),
+           "decoder_ms": cuda_ms(decoder, reps=3, warmup=1),
+           "invert_ms": cuda_ms(lambda: pipe.invert_masks(info, masks), reps=3, warmup=1)}
+    del emb, masks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["eval_ms"] = cuda_ms(lambda: seg_eval(pipe, batch), reps=3, warmup=1)
+    out["eval_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["eval_images_per_s"] = SEG_B / out["eval_ms"] * 1e3
+    return out
+
+
+def seg_grad_norms(model):
+    """grad/<top-level module>/norm after a step (its `.grad`s stay)."""
+    out = {}
+    for name, child in model.named_children():
+        sq = sum(float(torch.sum(p.grad.double() ** 2)) for p in child.parameters()
+                 if p.grad is not None)
+        out[f"grad/{name}/norm"] = math.sqrt(sq)
+    return out
+
+
+def seg_step_vs_cpu(tp):
+    """One train step at a cut depth (encoder depth 2: 128 wide, 256 px,
+    batch SEG_CPU_B, dropout 0, SGD 0.01 so that no Adam normalization
+    hides a gradient's size) from the same weights on the card and on the
+    CPU, held to phase 12's bars (`step_differences`), each gradient-norm
+    and update bar raised to three times the CPU's own difference under a
+    1e-7 relative perturbation of the images where that is larger (the
+    straight-through selection's gradient sums the SAM input gradient
+    against the image's slope, as in phase 17)."""
+    pipe = build_segmentation(tp, image=SEG_CPU_IMAGE, depth=2, seed=72, dropout=0.0)
+    batch = seg_to(seg_batch(tp, 73, SEG_CPU_B, SEG_CPU_IMAGE, "cpu"), "cpu")
+    noise = torch.randn(batch["image"].shape, generator=torch.Generator().manual_seed(74))
+    before = {k: v.detach().cpu().clone() for k, v in pipe.state_dict().items()}
+    pipe_cpu = copy.deepcopy(pipe).to("cpu")
+    runs = [(DEVICE, pipe, batch["image"]), ("cpu", pipe_cpu, batch["image"]),
+            ("cpu", copy.deepcopy(pipe_cpu), batch["image"] * (1.0 + 1e-7 * noise))]
+    res = []
+    step = tp.make_segmentation_train_step(prior_weight=100.0)
+    for dev, model, img in runs:
+        state = tp.TrainState(model=model,
+                              optimizers=[torch.optim.SGD(model.parameters(), lr=0.01)])
+        b = seg_to({"image": img, "targets": batch["targets"]}, dev)
+        _, m = step(state, b)
+        metrics = {k: v.item() for k, v in m.items()}
+        metrics.update(seg_grad_norms(model))
+        res.append((metrics, {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+    out = step_differences(res[0], res[1], before)
+    own = step_differences(res[2], res[1], before)
+    for d in (out, own):  # a ResNet head's row; SAMLite has none
+        d["update_rel"].pop("prediction_network.Dense_0")
+    out["cpu_spread"] = own
+    out["bars"] = {
+        "grad_norm_rel": {k: max(1e-3, 3 * own["grad_norm_rel"][k])
+                          for k in out["grad_norm_rel"]},
+        "update_rel": {k: max(v, 3 * own["update_rel"][k]) for k, v in
+                       {"canonicalizer": 1e-3, "prediction_network": 5e-2}.items()}}
+    del pipe, pipe_cpu, runs
+    torch.cuda.empty_cache()
+    return held_to_bars(out)
+
+
+def seg_train_phase(tp, sw):
+    """The prior-regularized step at full width (batch SEG_TRAIN_B, AdamW
+    8e-4, prior weight 100, dropout from a generator on the card): no
+    kernel launches (the targets and images take the one-hot blend); the
+    loss finite, every parameter group moved; ms per step over 3 steps
+    after a warm-up, peak memory."""
+    pipe = build_segmentation(tp, seed=75)
+    state = tp.create_segmentation_state(pipe, 8e-4)
+    step = tp.make_segmentation_train_step(prior_weight=100.0)
+    batch = seg_batch(tp, 76, SEG_TRAIN_B)
+    draws = torch.Generator(device=DEVICE).manual_seed(77)
+    before = {k: v.detach().clone() for k, v in pipe.state_dict().items()}
+    sw.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    _, m = step(state, batch, draws)
+    sync()
+    assert not sw.launches, sw.launches
+    first = {k: v.item() for k, v in m.items()}
+    assert first["loss/finite"] == 1.0 and math.isfinite(first["loss/total"]), first
+    moved = {top: any(not torch.equal(v, before[k]) for k, v in pipe.state_dict().items()
+                      if k.startswith(top) and v.is_floating_point()
+                      and not k.endswith(("running_mean", "running_var")))
+             for top in ("canonicalizer", "prediction_network.SamVitEncoder_0",
+                         "prediction_network.MaskDecoderLite_0")}
+    assert all(moved.values()), moved
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        _, m = step(state, batch, draws)
+    end.record()
+    sync()
+    ms = start.elapsed_time(end) / 3
+    out = {"first_step": first, "last_loss": m["loss/total"].item(), "moved": moved,
+           "step_ms": ms, "images_per_s": SEG_TRAIN_B / ms * 1e3,
+           "step_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del state, pipe, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def seg_cli_phase(sw, src_log):
+    """The CLI as the JAX one cuts it (128 px, SAMLite(128, 2, 2, 4), the
+    default canonicalizer): one epoch with a checkpoint, then test mode
+    from it, its sweep equal to the trained state's on the test batch;
+    each run counted and its first launch of each kind checked again
+    against the plain version. The CLI's evaluation is the sweep, whose
+    bilinear mask rotation leaves the masks in NHWC memory: K3 takes the
+    images (tile path, 12-byte pixels) and the masks (word path)."""
+    import tempfile
+
+    from equiadapt_tpu_torch.cli import segmentation_train as cli
+
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        state, train = counted((sw,), src_log, "cli_segmentation",
+                               lambda: cli.main(["experiment.num_epochs=1",
+                                                 f"checkpoint.checkpoint_path={ck}"],
+                                                device=DEVICE))
+        train_s = time.perf_counter() - t0
+        test_args = ["experiment.run_mode=test", f"checkpoint.checkpoint_path={ck}"]
+        metrics, test = counted((sw,), src_log, "cli_segmentation_test",
+                                lambda: cli.main(test_args, device=DEVICE))
+        cfg = cli.compose(test_args)
+        with torch.no_grad():
+            in_process = cli.group_sweep(cfg, state.model, cli.TEST_STREAM, DEVICE)
+    for k, v in in_process.items():
+        assert abs(metrics[k] - v.item()) <= 1e-6, (k, metrics, in_process)
+    for counts in (train, test):
+        assert set(counts["paths"]) == {"select_planes_nhwc/float32/tile",
+                                        "select_planes_nhwc/float32/word"}, counts
+    return {"train_s": train_s, "steps": state.step, "train": train, "test": test,
+            "test_metrics": metrics}
+
+
+def segmentation_phase(tp, sw, src_log, bwidth):
+    """Phase 21: BASELINE config 5 at full width (see the module docstring)."""
+    out = {"kernels": seg_kernel_rows(sw, bwidth)}
+    pipe = build_segmentation(tp)
+    batch = seg_batch(tp, 78, SEG_B)
+    with torch.no_grad():
+        sw.reset_launches()
+        src_log.start("segmentation")
+        res = seg_eval(pipe, batch)
+        sync()
+        src_log.stop()
+        counts, paths = dict(sw.launches), dict(sw.path_launches)
+        sources = src_log.select_launches("segmentation")
+        log(f"segmentation: launches {counts}, paths {paths}, select sources {sources}")
+        assert counts == {"select_planes_nhwc/float32": 1, "select_planes/float32": 2}, counts
+        assert sources == {"select_planes/float32,1 source": 2}, sources
+        assert paths == {"select_planes_nhwc/float32/tile": 1,
+                         "select_planes/float32/word": 2}, paths
+        x_c, t_c, masks, ious, info, back = res
+        assert masks.shape == back.shape == (SEG_B, SEG_PROMPTS, SEG_IMAGE, SEG_IMAGE)
+        for t in (x_c, t_c["boxes"], t_c["masks"], masks, ious, back,
+                  info.group_activations):
+            assert bool(torch.isfinite(t).all())
+        out.update(launches=counts, paths=paths, select_sources=sources)
+        out["cpu"] = seg_vs_cpu(pipe, batch, res)
+        log(f"segmentation vs CPU: {json.dumps(out['cpu'])}")
+        del res, x_c, t_c, masks, ious, back
+        out["rot90"] = seg_equivariance(tp, pipe, batch, info)
+        log(f"segmentation rot90: {json.dumps(out['rot90'])}")
+        out["times"] = seg_times(pipe, batch)
+        sw.reset_launches()
+        sweep = tp.segmentation_group_inference(pipe, batch, num_rotations=4)
+        sync()
+        out["sweep"] = {k: v.item() for k, v in sweep.items()}
+        out["sweep_launches"] = dict(sw.launches)
+        assert set(out["sweep"]) == {f"test/map_element_{g}" for g in range(4)} | {
+            "test/group_map", "test/map"}, out["sweep"]
+        assert all(0.0 <= v <= 1.0 for v in out["sweep"].values()), out["sweep"]
+        # each element: K3 on the images; the masks, rotated by the bilinear
+        # warp into NHWC memory, take K3 too
+        assert sum(out["sweep_launches"].values()) == 8, out["sweep_launches"]
+        log(f"segmentation sweep: {json.dumps(out['sweep'])}")
+    del pipe, batch, info
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        out["train"] = seg_train_phase(tp, sw)
+        log(f"segmentation train: {json.dumps(out['train'])}")
+        out["train_vs_cpu"] = seg_step_vs_cpu(tp)
+        out["cli"] = seg_cli_phase(sw, src_log)
+    log(f"segmentation times: {json.dumps(out['times'])}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -4062,6 +4477,17 @@ def main() -> int:
             **{f"cli_{run}": row["launches"] for run, row in pc_train["cli"].items()}}
         for path, counts in pc_train_launches.items():
             launches.update({f"{path}:{k}": v for k, v in counts.items()})
+        # BASELINE config 5 at full width (phase 21)
+        times["segmentation"] = seg = segmentation_phase(tp, sw, src_log, bwidth)
+        launches.update({f"segmentation:{k}": v for k, v in seg["launches"].items()})
+        launches.update({f"segmentation_sweep:{k}": v
+                         for k, v in seg["sweep_launches"].items()})
+        for run in ("train", "test"):
+            row = seg["cli"][run]
+            launches.update({f"cli_segmentation_{run}:{k}": v
+                             for k, v in row["launches"].items()})
+            add_paths(row["paths"])
+        add_paths(seg["paths"])
         for key, row in times["continuous_train"].items():
             launches.update({f"continuous_train_{key}:{k}": v
                              for k, v in row["launches"].items()})
@@ -4122,6 +4548,20 @@ def main() -> int:
         # phase 19's launches, each checked at its own shape (`counted`)
         cli_checked = [row for run in cli_runs.values() for row in run["checked"]]
         cli_checked += [row for run in pc_train["cli"].values() for row in run["checked"]]
+        cli_checked += [row for run in ("train", "test") for row in seg["cli"][run]["checked"]]
+        # K1a and K3 at config 5's shapes (phase 21): the rows of
+        # `seg_kernel_rows` and the launches of its eval path
+        seg_rows = {"select_planes[float32,1 source]": "select_planes",
+                    "select_planes_nhwc[float32]": "select_planes_nhwc"}
+        for entry in kernels:
+            if entry["name"] in seg_rows:
+                key = seg_rows[entry["name"]]
+                entry["segmentation"] = dict(
+                    seg["kernels"][key],
+                    launches=seg["select_sources"].get("select_planes/float32,1 source", 0)
+                    if key == "select_planes"
+                    else seg["launches"].get("select_planes_nhwc/float32", 0))
+        assert all("segmentation" in e for e in kernels if e["name"] in seg_rows), kernels
         for entry in kernels:
             entry["cli_checks"] = [{k: v for k, v in row.items() if k != "kernel"}
                                    for row in cli_checked if row["kernel"] == entry["name"]]
@@ -4176,6 +4616,17 @@ def main() -> int:
         "cli_pointcloud_test": pt["cli"]["pointcloud_test"]["metrics"],
         "cli_partseg_test": pt["cli"]["partseg_test"]["metrics"],
         "cli_pointcloud_epoch_s": pt["cli"]["pointcloud_train"]["train_s"]}}))
+    sg = times["segmentation"]
+    log(json.dumps({"segmentation": {
+        "device": smi, **sg["times"],
+        "train_step_ms": sg["train"]["step_ms"],
+        "train_images_per_s": sg["train"]["images_per_s"],
+        "train_step_peak_mem_gib": sg["train"]["step_peak_mem_gib"],
+        "train_losses": [sg["train"]["first_step"]["loss/total"], sg["train"]["last_loss"]],
+        "sweep": sg["sweep"], "cli_test": sg["cli"]["test_metrics"],
+        "kernels": {k: {f: row[f] for f in ("shape", "ms", "bound_ms", "library_ms",
+                                              "plain_ms")}
+                    for k, row in sg["kernels"].items()}}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -42,6 +42,13 @@ Ported so far:
   (`models.egnn`), `NBodyPipeline` with its train step, the checkpoint
   and metric harness (`utils.checkpoint`, `utils.metrics`) and the CLI
   `python -m equiadapt_tpu_torch.cli.nbody_train` (no kernel on its path);
+* the segmentation path (BASELINE config 5): the discrete canonicalizer
+  with targets (boxes and masks co-canonicalized; the masks through K1) ->
+  `SAMLite` (the light ViT encoder or SAM's ViT encoder, box prompts, the
+  two-way mask decoder) -> `ImageSegmentationPipeline.invert_masks` (K1),
+  the prior-regularized train step, the mAP group sweep, the SAM
+  checkpoint converters, ViT, the rectangles data and the CLI `python -m
+  equiadapt_tpu_torch.cli.segmentation_train`;
 * the image-classification pipeline (`ImageClassifierPipeline`,
   `classification_loss`, the training half `TrainState`, `make_optimizer`,
   `create_train_state`, `make_train_step`, and `make_eval_step`,
@@ -86,6 +93,7 @@ from equiadapt_tpu_torch.images import (
 )
 from equiadapt_tpu_torch.data import (
     batch_iterator,
+    synthetic_coco_batch,
     generate_nbody_dataset,
     simulate_charged,
     simulate_springs,
@@ -101,7 +109,11 @@ from equiadapt_tpu_torch.models import (
     PointNet,
     ResNet18,
     ResNet50,
+    SAMLite,
+    SamVitEncoder,
     TransformNet,
+    ViT,
+    ViTB16,
 )
 from equiadapt_tpu_torch.nbody import EuclideanGroupNBody, VNDeepSets
 from equiadapt_tpu_torch.ops.group_action import (
@@ -111,6 +123,7 @@ from equiadapt_tpu_torch.ops.group_action import (
 from equiadapt_tpu_torch.ops.kernels.orbit import materialize_orbit, rot90_flip_orbit
 from equiadapt_tpu_torch.pipelines import (
     ImageClassifierPipeline,
+    ImageSegmentationPipeline,
     NBodyPipeline,
     PointcloudClassificationPipeline,
     PointcloudPartSegPipeline,
@@ -118,18 +131,23 @@ from equiadapt_tpu_torch.pipelines import (
     classification_loss,
     create_nbody_state,
     create_pointcloud_state,
+    create_segmentation_state,
     create_train_state,
     group_inference,
     make_eval_step,
     make_nbody_train_step,
     make_optimizer,
     make_pointcloud_train_step,
+    make_segmentation_train_step,
     make_train_step,
+    mean_average_precision_segm,
     nbody_eval_mse,
     pointcloud_loss,
     random_point_dropout,
     random_rotate,
     random_scale_shift,
+    segmentation_group_inference,
+    segmentation_task_loss,
     to_network_layout,
     vanilla_inference,
 )
@@ -158,6 +176,7 @@ from equiadapt_tpu_torch.utils import (
     get_nbody_prediction_network,
     get_pointcloud_canonicalizer,
     get_pointcloud_prediction_network,
+    get_segmentation_prediction_network,
     flax_variables,
     load_flax_variables,
     load_yaml,
@@ -201,6 +220,18 @@ __all__ = [
     "DGCNN",
     "DGCNNPartSeg",
     "TransformNet",
+    "SAMLite",
+    "SamVitEncoder",
+    "ViT",
+    "ViTB16",
+    "ImageSegmentationPipeline",
+    "create_segmentation_state",
+    "make_segmentation_train_step",
+    "segmentation_group_inference",
+    "segmentation_task_loss",
+    "mean_average_precision_segm",
+    "synthetic_coco_batch",
+    "get_segmentation_prediction_network",
     "GNN",
     "NBodyMLP",
     "NBodyTransformer",

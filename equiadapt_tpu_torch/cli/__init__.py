@@ -1,6 +1,6 @@
 """Command-line entry points of the port (`python -m equiadapt_tpu_torch.cli.<name>`):
 `classification_train`, `classification_serve`, `nbody_train`,
-`pointcloud_train` and `partseg_train`."""
+`pointcloud_train`, `partseg_train` and `segmentation_train`."""
 
 import torch
 

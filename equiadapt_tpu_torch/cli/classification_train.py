@@ -98,7 +98,8 @@ def build_pipeline(cfg: Config, device) -> ImageClassifierPipeline:
     canon = get_image_canonicalizer(cfg.canonicalization, net, in_shape,
                                     device=device)
     pred = get_image_prediction_network(cfg.prediction, cfg.dataset.num_classes,
-                                        small_images=size <= 64, device=device)
+                                        small_images=size <= 64, device=device,
+                                        image_size=size)
     return ImageClassifierPipeline(canonicalizer=canon, prediction_network=pred,
                                    remat=cfg.prediction.remat)
 

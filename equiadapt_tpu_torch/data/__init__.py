@@ -1,7 +1,12 @@
 """Data: the n-body simulators, the synthetic batches, the point-cloud
-dataset loaders and (in `data.images` and `data.autoaugment`) the image
-dataset loaders."""
+dataset loaders, the COCO reader and rectangles task (`data.coco`) and (in
+`data.images` and `data.autoaugment`) the image dataset loaders."""
 
+from equiadapt_tpu_torch.data.coco import (
+    load_coco_annotations,
+    resize_and_pad,
+    synthetic_coco_batch,
+)
 from equiadapt_tpu_torch.data.nbody_sim import (
     generate_nbody_dataset,
     simulate_charged,
@@ -19,6 +24,9 @@ from equiadapt_tpu_torch.data.synthetic import (
 )
 
 __all__ = [
+    "load_coco_annotations",
+    "resize_and_pad",
+    "synthetic_coco_batch",
     "generate_nbody_dataset",
     "simulate_charged",
     "simulate_springs",

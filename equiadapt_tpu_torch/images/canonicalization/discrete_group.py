@@ -25,8 +25,11 @@ regular rep, in training too where the fused invert applies).
 
 `training` is an argument, as in the JAX package; the module mode is not
 read. Random draws (dropout masks, Gumbel noise, the optimized variant's
-artifact rotations) come from the `generator` given to `canonicalize`. Not
-ported yet: co-canonicalized targets (boxes and masks, ROADMAP.md item 14).
+artifact rotations) come from the `generator` given to `canonicalize`.
+With `targets` (boxes (B, N, 4) and masks (B, N, H, W)), `canonicalize`
+returns `(x_canon, targets_canon, info)`: the boxes and masks take the
+selected element too, the masks in eval through K1 (their (B, H, W, N)
+view of NCHW memory), in training through the `rotate_discrete` blend.
 The optimized variant's `orbit_sharding` (a mesh constraint) waits for
 `parallel/` (ROADMAP.md item 16). The JAX package's NCHW-spine
 serving branch is a TPU layout path with no counterpart here.
@@ -46,6 +49,7 @@ from equiadapt_tpu_torch.common.info import (
     DiscreteGroupElement,
 )
 from equiadapt_tpu_torch.common.selector import select_onehot
+from equiadapt_tpu_torch.ops.boxes import flip_boxes, flip_masks, rotate_boxes
 from equiadapt_tpu_torch.ops.group_action import get_action_on_image_features
 from equiadapt_tpu_torch.ops.kernels.orbit import materialize_orbit
 from equiadapt_tpu_torch.ops.kernels.select_warp import rotate_select
@@ -161,12 +165,14 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         warps with the `rotate_discrete` blend, so the loss reaches the
         energy network. Eval selects the hard argmax and warps through the
         select kernels. Further keyword arguments go to the subclass's
-        `get_group_activations`."""
-        if targets is not None:
-            raise NotImplementedError(
-                "co-canonicalized targets (boxes, masks) are not ported yet "
-                "(ROADMAP.md item 14, segmentation)"
-            )
+        `get_group_activations`.
+
+        With `targets` (a dict with "boxes" (B, N, 4) xyxy and "masks"
+        (B, N, H, W)) returns `(x_canon, targets_canon, info)`: the boxes
+        and masks blended with their flips by the reflection indicator
+        (D_n), the boxes rotated with the element's angle and re-aligned,
+        the masks rotated as the image is, with zeros fill (eval: K1 on
+        their view of NCHW memory; training: the one-hot blend)."""
         in_dtype = x.dtype
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
@@ -199,7 +205,31 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
             group_type=self.group_type,
             extras=extras,
         )
+        if targets is not None:
+            return x, self._canonicalize_targets(
+                targets, element, rot_onehot, x.shape[2], training), info
         return x, info
+
+    def _canonicalize_targets(self, targets: Dict[str, Tensor],
+                              element: DiscreteGroupElement, rot_onehot: Tensor,
+                              width: int, training: bool) -> Dict[str, Tensor]:
+        boxes, masks = targets["boxes"], targets["masks"]
+        if element.reflection is not None:
+            r = element.reflection
+            boxes = ((1.0 - r[:, None, None]) * boxes
+                     + r[:, None, None] * flip_boxes(boxes, width))
+            masks = ((1.0 - r[:, None, None, None]) * masks
+                     + r[:, None, None, None] * flip_masks(masks))
+        boxes = rotate_boxes(boxes, element.rotation_deg, width)
+        n = self.num_rotations
+        masks_nhwc = masks.movedim(1, -1)  # (B, H, W, N), a view of NCHW memory
+        if training:
+            masks_nhwc = rotate_discrete(masks_nhwc, rot_onehot.to(masks.dtype), n,
+                                         -1.0, "zeros", self.warp_mode)
+        else:
+            masks_nhwc = rotate_select(masks_nhwc, torch.argmax(rot_onehot, dim=-1),
+                                       n, -1.0, "zeros", self.warp_mode)
+        return {**targets, "boxes": boxes, "masks": masks_nhwc.movedim(-1, 1)}
 
     def invert_canonicalization(
         self, info: DiscreteCanonicalizationInfo, x_canonicalized_out: Tensor,

@@ -16,6 +16,22 @@ from equiadapt_tpu_torch.models.pointnet import (
     TransformNet,
     get_graph_feature,
 )
+from equiadapt_tpu_torch.models.sam_convert import (
+    convert_sam_checkpoint,
+    convert_sam_vit_encoder,
+)
+from equiadapt_tpu_torch.models.sam_encoder import SamVitEncoder, sam_vit_b_encoder_kwargs
+from equiadapt_tpu_torch.models.segmentation import (
+    ImageEncoderLite,
+    MaskDecoderLite,
+    PromptEncoderLite,
+    SAMLite,
+    calc_iou,
+    dice_loss,
+    focal_loss,
+    segmentation_forward_outputs,
+)
+from equiadapt_tpu_torch.models.vit import EncoderBlock, ViT, ViTB16
 from equiadapt_tpu_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
@@ -29,4 +45,8 @@ from equiadapt_tpu_torch.models.resnet import (
 __all__ = ["GCL", "GCLRF", "GNN", "NBodyMLP", "NBodyTransformer",
            "edge_attributes", "positional_encoding",
            "DGCNN", "DGCNNPartSeg", "PointNet", "TransformNet", "get_graph_feature", "BasicBlock", "Bottleneck",
-           "ResNet", "ResNet18", "ResNet50", "WideResNet50", "WideResNet101"]
+           "ResNet", "ResNet18", "ResNet50", "WideResNet50", "WideResNet101",
+           "convert_sam_checkpoint", "convert_sam_vit_encoder", "SamVitEncoder",
+           "sam_vit_b_encoder_kwargs", "ImageEncoderLite", "MaskDecoderLite",
+           "PromptEncoderLite", "SAMLite", "calc_iou", "dice_loss", "focal_loss",
+           "segmentation_forward_outputs", "EncoderBlock", "ViT", "ViTB16"]

@@ -192,31 +192,47 @@ class DenseGeneral(nn.Linear):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """Flax's `nn.MultiHeadDotProductAttention` without a mask or dropout:
+    """Flax's `nn.MultiHeadDotProductAttention` without a mask:
     query / key / value projections to (heads, head_dim), queries scaled by
-    1 / sqrt(head_dim), a softmax over the keys, `out` back to `features`."""
+    1 / sqrt(head_dim), a softmax over the keys, `out` back to `features`.
+    Keys and values come from `kv` where it is given (cross-attention, Flax's
+    `inputs_k`), else from the queries' input. With `dropout_rate` > 0 and
+    training=True the attention weights are dropped as Flax drops them (one
+    (queries, keys) mask broadcast over batch and heads, drawn from
+    `generator`)."""
 
     def __init__(self, features: int, num_heads: int,
-                 qkv_features: Optional[int] = None, device="cuda"):
+                 qkv_features: Optional[int] = None, dropout_rate: float = 0.0,
+                 device="cuda"):
         super().__init__()
         qkv = qkv_features or features
         if qkv % num_heads:
             raise ValueError(f"qkv_features {qkv} is not divisible by {num_heads} heads")
         self.num_heads, self.head_dim = num_heads, qkv // num_heads
+        self.dropout_rate = dropout_rate
         heads = (num_heads, self.head_dim)
         for name in ("query", "key", "value"):
             setattr(self, name, DenseGeneral((features,) + heads, heads, device=device))
         self.out = DenseGeneral(heads + (features,), (features,), n_in_axes=2,
                                 device=device)
 
-    def forward(self, x: Tensor) -> Tensor:
-        """Self-attention over (B, n, features)."""
+    def forward(self, x: Tensor, kv: Optional[Tensor] = None,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        """Attention of (B, n, features) queries over `kv` (B, m, features),
+        or over x itself."""
         B, n, _ = x.shape
-        shape = (B, n, self.num_heads, self.head_dim)
-        q = self.query(x).reshape(shape) / math.sqrt(self.head_dim)
-        k = self.key(x).reshape(shape)
-        v = self.value(x).reshape(shape)
+        kv = x if kv is None else kv
+        heads = (self.num_heads, self.head_dim)
+        q = self.query(x).reshape(B, n, *heads) / math.sqrt(self.head_dim)
+        k = self.key(kv).reshape(B, kv.shape[1], *heads)
+        v = self.value(kv).reshape(B, kv.shape[1], *heads)
         w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        if training and self.dropout_rate > 0.0:
+            keep_prob = 1.0 - self.dropout_rate
+            keep = torch.bernoulli(torch.full(w.shape[-2:], keep_prob, device=w.device),
+                                   generator=generator)
+            w = w * (keep / keep_prob).to(w.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return self.out(o.reshape(B, n, -1))
 

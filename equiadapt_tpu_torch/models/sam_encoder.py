@@ -1,0 +1,207 @@
+"""SAM's ViT image encoder (Segment-Anything `image_encoder.py` semantics),
+NHWC, for running converted pretrained SAM checkpoints.
+
+Counterpart of `equiadapt_tpu/models/sam_encoder.py`:
+
+* patch embedding: a patch-size conv with bias;
+* a learned 2-D absolute position embedding (1, h, w, C);
+* pre-LN blocks (eps 1e-6): fused qkv, scaled dot-product attention with
+  SAM's decomposed relative position biases (attn += q . R_h + q . R_w),
+  an MLP lin1 -> exact GELU -> lin2;
+* windowed attention (bottom / right zero pad to whole windows, then
+  unpad) in every block but `global_attn_indexes`;
+* the neck: 1x1 conv (no bias) -> LayerNorm2d -> 3x3 conv (no bias) ->
+  LayerNorm2d (over channels, eps 1e-6; here the last axis).
+
+Parameters are named after SAM's torch tree (`patch_embed.proj`,
+`pos_embed`, `blocks.{i}.norm1` / `attn.qkv` / `attn.proj` /
+`attn.rel_pos_h` / `attn.rel_pos_w` / `norm2` / `mlp.lin1` / `mlp.lin2`,
+`neck.{0,1,2,3}`), so a SAM image-encoder state dict loads as it is
+(`models.sam_convert.convert_sam_vit_encoder`). `flax_aliases` maps the
+JAX package's Flax names (`patch_embed`, `block{i}`, `lin1`, `neck_conv1`,
+...) onto them for `utils.jax_weights`.
+
+Attention is written out as products and a softmax in fp32, as in the JAX
+package: a global block at 1024 px holds (B, heads, 4096, 4096) scores.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from equiadapt_tpu_torch.ops.warp import resize
+
+Tensor = torch.Tensor
+
+__all__ = ["SamVitEncoder", "sam_vit_b_encoder_kwargs"]
+
+
+def sam_vit_b_encoder_kwargs() -> dict:
+    """Constructor kwargs matching the sam_vit_b checkpoint."""
+    return dict(
+        img_size=1024, patch_size=16, embed_dim=768, depth=12, num_heads=12,
+        out_chans=256, window_size=14, global_attn_indexes=(2, 5, 8, 11),
+    )
+
+
+def _window_partition(x: Tensor, ws: int) -> Tuple[Tensor, Tuple[int, int]]:
+    """(B, H, W, C) -> (B * windows, ws, ws, C), zero-padding the bottom and
+    right to whole windows."""
+    B, H, W, C = x.shape
+    pad_h = (ws - H % ws) % ws
+    pad_w = (ws - W % ws) % ws
+    if pad_h or pad_w:
+        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+    Hp, Wp = H + pad_h, W + pad_w
+    x = x.reshape(B, Hp // ws, ws, Wp // ws, ws, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws, ws, C), (Hp, Wp)
+
+
+def _window_unpartition(win: Tensor, ws: int, pad_hw: Tuple[int, int],
+                        hw: Tuple[int, int]) -> Tensor:
+    Hp, Wp = pad_hw
+    H, W = hw
+    B = win.shape[0] // (Hp * Wp // ws // ws)
+    x = win.reshape(B, Hp // ws, Wp // ws, ws, ws, -1)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, -1)
+    return x[:, :H, :W, :]
+
+
+def _rel_pos_table(q_size: int, k_size: int, rel_pos: Tensor) -> Tensor:
+    """SAM's get_rel_pos: a (2 max(q, k) - 1, hd) table -> the (q, k, hd)
+    biases, table[i - j + k - 1] at equal sizes. A table of another length
+    is first resized along its length (linear, antialiased when it
+    shrinks: `jax.image.resize`'s "linear")."""
+    max_rel = 2 * max(q_size, k_size) - 1
+    if rel_pos.shape[0] != max_rel:
+        rel_pos = resize(rel_pos[None, :, :, None],
+                         (max_rel, rel_pos.shape[1]))[0, :, :, 0]
+    qi = torch.arange(q_size, device=rel_pos.device)[:, None] * max(k_size / q_size, 1.0)
+    ki = torch.arange(k_size, device=rel_pos.device)[None, :] * max(q_size / k_size, 1.0)
+    coords = (qi - ki + (k_size - 1) * max(q_size / k_size, 1.0)).long()
+    return rel_pos[coords]
+
+
+class SamAttention(nn.Module):
+    """Multi-head attention with decomposed relative position biases over a
+    (B, H, W, C) token grid (a window, or the whole grid)."""
+
+    def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int],
+                 device="cuda"):
+        super().__init__()
+        self.num_heads = num_heads
+        hd = dim // num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, device=device)
+        self.proj = nn.Linear(dim, dim, device=device)
+        self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd,
+                                                  device=device))
+        self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd,
+                                                  device=device))
+
+    def forward(self, x: Tensor) -> Tensor:
+        B, H, W, C = x.shape
+        nh = self.num_heads
+        hd = C // nh
+        qkv = self.qkv(x.reshape(B, H * W, C))
+        qkv = qkv.reshape(B, H * W, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, HW, hd)
+        attn = (q * hd ** -0.5) @ k.transpose(-2, -1)  # (B, nh, HW, HW)
+        Rh = _rel_pos_table(H, H, self.rel_pos_h)  # (H, H, hd)
+        Rw = _rel_pos_table(W, W, self.rel_pos_w)  # (W, W, hd)
+        r_q = q.reshape(B, nh, H, W, hd)
+        bias_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, Rh)
+        bias_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, Rw)
+        # in place, in the JAX package's order: no backward reads the
+        # product, and a global block's scores are the largest tensor here
+        attn = attn.view(B, nh, H, W, H, W)
+        attn.add_(bias_h[..., :, None]).add_(bias_w[..., None, :])
+        attn = torch.softmax(attn.view(B, nh, H * W, H * W), dim=-1)
+        out = (attn @ v).transpose(1, 2).reshape(B, H * W, C)
+        return self.proj(out).reshape(B, H, W, C)
+
+
+class _Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, device="cuda"):
+        super().__init__()
+        self.lin1 = nn.Linear(dim, hidden, device=device)
+        self.lin2 = nn.Linear(hidden, dim, device=device)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.lin2(F.gelu(self.lin1(x)))  # exact (erf) GELU
+
+
+class SamBlock(nn.Module):
+    """Pre-LN block; window_size 0 attends globally over `input_size`."""
+
+    flax_aliases = {"lin1": "mlp.lin1", "lin2": "mlp.lin2"}
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 window_size: int = 0, input_size: Tuple[int, int] = (64, 64),
+                 device="cuda"):
+        super().__init__()
+        self.window_size = window_size
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6, device=device)
+        self.attn = SamAttention(
+            dim, num_heads,
+            (window_size, window_size) if window_size > 0 else input_size,
+            device=device)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6, device=device)
+        self.mlp = _Mlp(dim, int(dim * mlp_ratio), device=device)
+
+    def forward(self, x: Tensor) -> Tensor:
+        shortcut = x
+        x = self.norm1(x)
+        ws = self.window_size
+        if ws > 0:
+            hw = (x.shape[1], x.shape[2])
+            x, pad_hw = _window_partition(x, ws)
+        x = self.attn(x)
+        if ws > 0:
+            x = _window_unpartition(x, ws, pad_hw, hw)
+        x = shortcut + x
+        return x + self.mlp(self.norm2(x))
+
+
+class SamVitEncoder(nn.Module):
+    """SAM's ViT image encoder: (B, S, S, 3) -> (B, S / p, S / p, out_chans)."""
+
+    def __init__(self, img_size: int = 1024, patch_size: int = 16,
+                 embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 out_chans: int = 256, window_size: int = 14,
+                 global_attn_indexes: Sequence[int] = (2, 5, 8, 11),
+                 mlp_ratio: float = 4.0, device="cuda"):
+        super().__init__()
+        p = patch_size
+        h = img_size // p
+        self.patch_embed = nn.Module()
+        self.patch_embed.proj = nn.Conv2d(3, embed_dim, p, stride=p, device=device)
+        self.pos_embed = nn.Parameter(0.02 * torch.randn(1, h, h, embed_dim,
+                                                         device=device))
+        self.blocks = nn.ModuleList([
+            SamBlock(embed_dim, num_heads, mlp_ratio,
+                     0 if i in tuple(global_attn_indexes) else window_size,
+                     (h, h), device=device)
+            for i in range(depth)])
+        self.neck = nn.Sequential(
+            nn.Conv2d(embed_dim, out_chans, 1, bias=False, device=device),
+            nn.LayerNorm(out_chans, eps=1e-6, device=device),
+            nn.Conv2d(out_chans, out_chans, 3, padding=1, bias=False, device=device),
+            nn.LayerNorm(out_chans, eps=1e-6, device=device))
+        self.flax_aliases = {
+            "patch_embed": "patch_embed.proj", "neck_conv1": "neck.0",
+            "neck_ln1": "neck.1", "neck_conv2": "neck.2", "neck_ln2": "neck.3",
+            **{f"block{i}": f"blocks.{i}" for i in range(depth)}}
+
+    def forward(self, x: Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        x = self.patch_embed.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        x = x + self.pos_embed
+        for block in self.blocks:
+            x = block(x)
+        conv1, ln1, conv2, ln2 = self.neck
+        x = ln1(conv1(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+        return ln2(conv2(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))

@@ -22,6 +22,7 @@ from equiadapt_tpu_torch.utils.registry import (
     get_nbody_prediction_network,
     get_pointcloud_canonicalizer,
     get_pointcloud_prediction_network,
+    get_segmentation_prediction_network,
 )
 
 __all__ = [
@@ -42,6 +43,7 @@ __all__ = [
     "get_image_prediction_network",
     "get_pointcloud_canonicalizer",
     "get_pointcloud_prediction_network",
+    "get_segmentation_prediction_network",
     "get_nbody_canonicalizer",
     "get_nbody_prediction_network",
 ]

@@ -7,6 +7,9 @@ fills the torch module in place. The port's submodules carry the names
 Flax gives their counterparts, so a leaf's path names its torch owner:
 
 * `nn.Conv2d`: `kernel` HWIO -> `weight` OIHW, `bias` as is;
+* `nn.ConvTranspose2d` (Flax `ConvTranspose`, kernel 2, stride 2):
+  `kernel` (kh, kw, in, out) flipped in space -> `weight` (in, out, kh, kw),
+  since Flax's transposed conv applies its kernel unflipped;
 * `nn.Linear`: `kernel` (in, out) -> `weight` (out, in);
 * BatchNorm: `scale` / `bias` -> `weight` / `bias`, batch stats `mean` /
   `var` -> `running_mean` / `running_var`;
@@ -24,7 +27,12 @@ Flax gives their counterparts, so a leaf's path names its torch owner:
 * `nn.Embed`: `embedding` (num, features) -> `weight`;
 * a raw parameter of any other owner, copied as it is when the owner has a
   parameter of that name (the optimized canonicalizer's own
-  `reference_vector` (1, D), beside its network's leaves).
+  `reference_vector` (1, D), beside its network's leaves; the transformers'
+  `pos_embedding`, `cls_token`, `rel_pos_h`, ...).
+
+A module whose torch names differ from its Flax names (SAM's encoder, named
+after SAM's torch tree) carries `flax_aliases`, {Flax name: torch path}
+for its children; paths are translated through them both ways.
 
 It raises on a leaf it cannot place and on a torch parameter or persistent
 buffer left unfilled (other than BatchNorm's `num_batches_tracked`).
@@ -90,6 +98,11 @@ def _convert(owner: nn.Module, collection: str, leaf: str, value: np.ndarray):
     elif collection == "params" and isinstance(owner, nn.Embedding):
         if leaf == "embedding":
             return "weight", value
+    elif collection == "params" and isinstance(owner, nn.ConvTranspose2d):
+        if leaf == "kernel":
+            return "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
+        if leaf == "bias":
+            return "bias", value
     elif collection == "params" and isinstance(owner, nn.Conv2d):
         if leaf == "kernel":
             return "weight", value.transpose(3, 2, 0, 1)
@@ -119,6 +132,32 @@ def _convert(owner: nn.Module, collection: str, leaf: str, value: np.ndarray):
     )
 
 
+def _torch_scope(module: nn.Module, scope) -> list:
+    """The torch path of a Flax scope, through each owner's `flax_aliases`."""
+    out, node = [], module
+    for key in scope:
+        path = getattr(node, "flax_aliases", {}).get(key, key)
+        node = node.get_submodule(path)
+        out += path.split(".")
+    return out
+
+
+def _flax_scope(module: nn.Module, parts) -> list:
+    """The Flax scope of a torch path (the inverse of `_torch_scope`)."""
+    out, node, i = [], module, 0
+    while i < len(parts):
+        key, n = parts[i], 1
+        for flax_name, path in getattr(node, "flax_aliases", {}).items():
+            steps = path.split(".")
+            if list(parts[i:i + len(steps)]) == steps:
+                key, n = flax_name, len(steps)
+                break
+        node = node.get_submodule(".".join(parts[i:i + n]))
+        out.append(key)
+        i += n
+    return out
+
+
 def _targets(module: nn.Module) -> Dict[str, torch.Tensor]:
     return {
         n: t for n, t in module.state_dict(keep_vars=True).items()
@@ -139,6 +178,7 @@ def flax_placements(module: nn.Module,
         for path, value in _leaves(variables.get(collection, {})):
             *scope, leaf = path
             try:
+                scope = _torch_scope(module, scope)
                 owner = module.get_submodule(".".join(scope))
             except AttributeError as e:
                 raise KeyError(
@@ -190,11 +230,13 @@ def _unconvert(owner: nn.Module, name: str, value: np.ndarray):
         return "params", _LN_LEAVES[name], value
     if isinstance(owner, nn.Embedding) and name == "weight":
         return "params", "embedding", value
+    if isinstance(owner, nn.ConvTranspose2d) and name == "weight":
+        return "params", "kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1].copy()
     if isinstance(owner, nn.Conv2d) and name == "weight":
         return "params", "kernel", value.transpose(2, 3, 1, 0)
     if isinstance(owner, nn.Linear) and name == "weight":
         return "params", "kernel", value.T
-    if isinstance(owner, (nn.Conv2d, nn.Linear)) and name == "bias":
+    if isinstance(owner, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and name == "bias":
         return "params", "bias", value
     if isinstance(owner, NormBatchNorm) and name == "norm_sq":
         return "batch_stats", name, value
@@ -214,7 +256,7 @@ def flax_variables(module: nn.Module) -> Dict[str, Dict[str, Any]]:
         value = tensor.detach().float().cpu().numpy().copy()  # a snapshot
         collection, leaf, array = _unconvert(owner, attr, value)
         node = out[collection]
-        for key in scope:
+        for key in _flax_scope(module, scope):
             node = node.setdefault(key, {})
         node[leaf] = array
     if not out["batch_stats"]:

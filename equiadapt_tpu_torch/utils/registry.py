@@ -6,8 +6,9 @@ both packages (weights carried across by `load_flax_variables`). Modules are
 built on `device` ("cuda" unless the caller asks for the CPU).
 
 A key whose module is not ported yet raises `NotImplementedError` naming
-its ROADMAP.md item; nothing falls back to another network. The
-segmentation registry waits for its slice (item 14).
+its ROADMAP.md item; nothing falls back to another network. Torch modules
+are built at their input widths, so the ViT and SAM factories take the
+image size, which the Flax modules read from their input.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from equiadapt_tpu_torch.models import (
     ResNet18,
     ResNet50,
 )
+from equiadapt_tpu_torch.models.segmentation import SAMLite
+from equiadapt_tpu_torch.models.vit import ViT
 from equiadapt_tpu_torch.nbody import EuclideanGroupNBody, VNDeepSets
 from equiadapt_tpu_torch.ops.warp import crop_and_resize_size
 from equiadapt_tpu_torch.pointcloud.canonicalization import (
@@ -56,6 +59,7 @@ __all__ = [
     "get_image_canonicalization_network",
     "get_image_canonicalizer",
     "get_image_prediction_network",
+    "get_segmentation_prediction_network",
     "get_pointcloud_canonicalizer",
     "get_pointcloud_prediction_network",
     "get_nbody_canonicalizer",
@@ -198,9 +202,11 @@ def get_pointcloud_canonicalizer(cfg: CanonicalizationConfig, device="cuda"):
 
 
 def get_image_prediction_network(
-    cfg: PredictionConfig, num_classes: int, small_images: bool, device="cuda"
+    cfg: PredictionConfig, num_classes: int, small_images: bool, device="cuda",
+    image_size: int = 224,
 ) -> nn.Module:
-    """The image prediction network of `cfg`."""
+    """The image prediction network of `cfg` (`image_size` sizes the ViT's
+    position embeddings)."""
     dtype = _dtype(cfg.dtype) or torch.float32
     if cfg.architecture == "resnet50":
         return ResNet50(num_classes=num_classes, small_images=small_images,
@@ -209,8 +215,24 @@ def get_image_prediction_network(
         return ResNet18(num_classes=num_classes, small_images=small_images,
                         dtype=dtype, device=device)
     if cfg.architecture == "vit":
-        _not_ported("ViT", 14)
+        return ViT(num_classes=num_classes, image_size=image_size, device=device)
     raise ValueError(f"{cfg.architecture} is not implemented as prediction network")
+
+
+def get_segmentation_prediction_network(architecture: str, image_size: int,
+                                        num_classes: int = 91, device="cuda",
+                                        **kw) -> nn.Module:
+    """SAMLite ("sam", light encoder; "sam_vit", SAM's ViT encoder with 4
+    mask tokens) for images of `image_size`; `kw` goes to SAMLite. The
+    detection model ("maskrcnn") is not ported."""
+    if architecture == "sam":
+        return SAMLite(image_size, device=device, **kw)
+    if architecture == "sam_vit":
+        return SAMLite(image_size, encoder="sam_vit", num_mask_tokens=4,
+                       device=device, **kw)
+    if architecture == "maskrcnn":
+        _not_ported("MaskRCNNLite", 15)
+    raise ValueError(f"{architecture} is not implemented as a segmentation network")
 
 
 def get_pointcloud_prediction_network(architecture: str, num_classes: int,

@@ -167,13 +167,17 @@ def test_registry_prediction_and_pointcloud_factories():
                       tp.IdentityCanonicalization)
 
 
-@pytest.mark.parametrize("override,item", [
-    ("prediction.architecture=vit", "item 14"),
+@pytest.mark.parametrize("architecture,item", [
+    ("maskrcnn", "item 15"),
 ])
-def test_registry_names_the_roadmap_item_of_what_is_not_ported(override, item):
-    cfg = _cfg(override)
+def test_registry_names_the_roadmap_item_of_what_is_not_ported(architecture, item):
+    """ViT is ported (item 14); the detection model waits for item 15."""
+    cfg = _cfg("prediction.architecture=vit")
+    vit = treg.get_image_prediction_network(cfg.prediction, 10, True, device="cpu",
+                                            image_size=32)
+    assert type(vit).__name__ == "ViT" and vit(torch.zeros(1, 32, 32, 3)).shape == (1, 10)
     with pytest.raises(NotImplementedError, match=item):
-        treg.get_image_prediction_network(cfg.prediction, 10, True, device="cpu")
+        treg.get_segmentation_prediction_network(architecture, 64, device="cpu")
 
 
 @pytest.mark.parametrize("network_type,cls", [

@@ -133,7 +133,8 @@ def test_bf16_serving_path_runs_on_cpu():
 
 def test_training_and_targets_raise():
     """Training is ported (the module mode is not read); co-canonicalized
-    targets still raise."""
+    targets are ported too (`(x, targets, info)`), and targets without boxes
+    and masks raise."""
     net_kw, canon_kw = _canon_kwargs("rotation", "exact")
     canon = tp.GroupEquivariantImageCanonicalization(
         tp.EquivariantNetwork(**dict(net_kw, dropout_rate=0.0), device="cpu"),
@@ -142,7 +143,10 @@ def test_training_and_targets_raise():
     xc, _ = canon.canonicalize(x)  # a fresh module is in train mode
     xt, _ = canon.canonicalize(x, training=True)
     assert xc.shape == xt.shape == x.shape
-    with pytest.raises(NotImplementedError):
+    targets = {"boxes": torch.zeros(2, 3, 4), "masks": torch.zeros(2, 3, 32, 32)}
+    xc2, tc, _ = canon.canonicalize(x, targets)
+    assert torch.equal(xc2, xc) and tc["masks"].shape == (2, 3, 32, 32)
+    with pytest.raises(KeyError):
         canon.canonicalize(x, targets={"boxes": None})
 
 
