@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc compiles the port's CUDA sources from this checkout, one
-   nvcc per source, all started together; every select, shear and orbit
-   kernel must report 0 bytes of stack frame and no spills (ptxas);
+   nvcc per source, all started together; every kernel (select, shear,
+   orbit, exact warp, kNN) must report 0 bytes of stack frame and no
+   spills (ptxas);
 3. kernels against their plain PyTorch versions:
    - K1 (steered rotate-select) and K2 (fused rotate-select-roll) with
      `torch.equal` (fp32 and bf16; C4, C8, D8; C in {3, 16}; random
@@ -280,12 +281,37 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the CPU with phase 12's bars (raised to three times the CPU's own
    spread where larger); the segmentation CLI as the JAX one cuts it,
    train one epoch then test from the checkpoint, each run counted and
-   its first K3 launches checked again.
+   its first K3 launches checked again;
+22. item 15 (the rest of the harness): (a) BASELINE config 1's training
+   CLI with `prediction.pretrained=true` on a random torchvision-layout
+   ResNet-50 `.pth` (one epoch, then test mode from its checkpoint, each
+   run counted and its first launches checked again): every tensor the
+   converter fills equal to the file's before the first step, K1a in the
+   test run; (b) `utils.export`: the serving pipeline (serving_bf16.yaml,
+   batch 256, 224 px) exported at a fixed and at a symbolic batch, phase
+   7's point-cloud canonicalizer and K8 alone, each graph holding its
+   kernel's `eqt` operator; each artifact loaded here and in a fresh
+   process importing only torch and equiadapt_tpu_torch launches K3 or K8
+   once a call and answers as the live call (logits within the larger of
+   two live calls' spread and one bf16 ulp of the largest logit; frames
+   within 1e-6; kNN indices equal), the symbolic one at batch 256 and 64;
+   the exported serving call timed in turns with the live one (ms, img/s);
+   (c) the native loader (`native/`, built with the host compiler): two
+   epochs of 1024 random 224 px uint8 images in batches of 256, each batch
+   equal to the rows its order names, then streamed into the serving
+   pipeline on the card (loader batches/s, end-to-end img/s, K3 once a
+   batch); (d) MaskRCNNLite at config 5's scale (1024 px, 91 classes, 8
+   instances, 128 channels, the ResNet-50 trunk converted from a random
+   torchvision-layout state dict): the eval at batch 8 (no kernel launch),
+   its first sample against the CPU, the AdamW step at batch 4, ms and
+   peak memory of each, one step at 256 px, batch 2 against the CPU (bars
+   three times the CPU's own spread where larger), and the experiment
+   (`cli.maskrcnn_lite_experiment`) for 5 steps.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
-n-body, classification-CLI, MFU, point-cloud-training and segmentation
-JSON lines, the
+n-body, classification-CLI, MFU, point-cloud-training, segmentation and
+item-15 JSON lines, the
 nvidia-smi line and the `kernels` JSON line.
 """
 
@@ -417,6 +443,19 @@ PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {"bfloat16": 989.4e12, "float32": 66.9e12
 SEG_B, SEG_IMAGE, SEG_PROMPTS, SEG_HEADS, SEG_TRAIN_B = 8, 1024, 4, 8, 4
 SEG_CPU_B, SEG_CPU_IMAGE = 2, 256
 SEG_CONFIG = os.path.join("examples", "images", "segmentation", "configs", "default.yaml")
+# phase 22, item 15: the pretrained CLI run (config 1, a random torchvision
+# ResNet-50 from PRE_SEED); the serving export at EXPORT_B (and a symbolic
+# batch served at EXPORT_SMALL_B); MaskRCNNLite at config 5's scale (1024 px,
+# 91 classes, 8 instances, 128 channels; eval batch DET_B, step batch
+# DET_TRAIN_B; the step against the CPU at DET_CPU_IMAGE px, batch DET_CPU_B;
+# the first sample against the CPU within DET_CPU_BAR of each output's
+# largest value: fp32, TF32 off, summation order; DET_MASK_BAR for the masks
+# of the predicted prompts); the native loader
+PRE_SEED, EXPORT_SEED, DET_SEED, LOADER_SEED = 81, 83, 85, 91
+EXPORT_B, EXPORT_SMALL_B, EXPORT_IMAGE = 256, 64, 224
+DET_IMAGE, DET_CLASSES, DET_K, DET_CH, DET_B, DET_TRAIN_B = 1024, 91, 8, 128, 8, 4
+DET_CPU_IMAGE, DET_CPU_B, DET_CPU_BAR, DET_MASK_BAR, DET_EXPERIMENT_STEPS = 256, 2, 1e-4, 1e-3, 5
+LOADER_RECORDS, LOADER_B, LOADER_THREADS, LOADER_IMAGE = 1024, 256, 4, 224
 
 
 def log(*a):
@@ -4151,6 +4190,491 @@ def segmentation_phase(tp, sw, src_log, bwidth):
     return out
 
 
+def eqt_nodes(blob):
+    """The registered kernel operators (`torch.ops.eqt.*`) in an exported
+    program's graph."""
+    import io
+
+    program = torch.export.load(io.BytesIO(blob))
+    return sorted(str(n.target) for n in program.graph.nodes
+                  if str(n.target).startswith("eqt."))
+
+
+def pretrained_phase(tp, sw, orb, src_log):
+    """Phase 22a: BASELINE config 1's training CLI with
+    `prediction.pretrained=true` on a random torchvision-layout ResNet-50
+    `.pth` (one epoch of 20 steps on CIFAR-10 pickles), then test mode from
+    its checkpoint. Every tensor the converter fills equals the file's
+    before the first step; the test run launches K1a."""
+    import tempfile
+
+    from equiadapt_tpu_torch.cli import classification_train as cli
+    from equiadapt_tpu_torch.cli.maskrcnn_lite_experiment import random_resnet50_state_dict
+    from equiadapt_tpu_torch.models.convert import convert_resnet_checkpoint
+
+    cfg_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLS_CONFIGS)
+    sd = random_resnet50_state_dict(seed=PRE_SEED)
+    loaded, build = [], cli.build_state
+
+    def spy(*args, **kw):
+        state = build(*args, **kw)
+        loaded.append({k: v.detach().cpu().clone() for k, v in
+                       state.model.prediction_network.state_dict().items()})
+        return state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "resnet50.pth")
+        torch.save(sd, pth)
+        write_cifar10(tmp, torch.Generator().manual_seed(PRE_SEED))
+        args = [f"config={cfg_dir}/default.yaml", f"dataset.data_path={tmp}",
+                "experiment.num_epochs=1", "prediction.pretrained=true",
+                f"prediction.pretrained_path={pth}"]
+        cli.build_state = spy
+        try:
+            state, out = cli_train_and_test(tp, cli, sw, orb, src_log, "cli_pretrained",
+                                            args, os.path.join(tmp, "ck"))
+        finally:
+            cli.build_state = build
+    # the tensors the converter fills: those it changes on a NaN template
+    nan = {k: torch.full_like(v, float("nan")) if v.is_floating_point() else v
+           for k, v in loaded[0].items()}
+    want = {k: v for k, v in convert_resnet_checkpoint(sd, nan).items()
+            if v.is_floating_point() and not torch.isnan(v).all()}
+    equal = [k for k, v in want.items() if torch.equal(loaded[0][k], v)]
+    out.update(converted_tensors=len(want), equal_before_first_step=len(equal),
+               kept_fresh=sorted(set(nan) - set(want) - {
+                   k for k in nan if k.endswith("num_batches_tracked")}))
+    assert len(equal) == len(want) >= 260, out
+    assert out["test_counts"]["select_sources"].get(
+        "select_planes/float32,1 source", 0) >= 1, out["test_counts"]
+    del state
+    torch.cuda.empty_cache()
+    log(f"pretrained: {json.dumps(out)}")
+    return out
+
+
+_FRESH_PROCESS = r"""
+import json, sys, torch
+import equiadapt_tpu_torch
+from equiadapt_tpu_torch.ops.kernels import knn, select_warp
+from equiadapt_tpu_torch.utils.export import load_exported
+d = sys.argv[1]
+x, pts = torch.load(f"{d}/x.pt"), torch.load(f"{d}/pts.pt")
+out, counts = {}, {}
+for name, batch in (("fixed", x), ("symbolic", x), ("symbolic_small", x[:%d]),
+                    ("pointcloud", pts), ("knn", pts)):
+    fn = load_exported(open(f"{d}/{name.split('_')[0]}.pt2", "rb").read())
+    fn(batch)  # warm-up
+    torch.cuda.synchronize()
+    select_warp.reset_launches(); knn.reset_launches()
+    out[name] = fn(batch)
+    torch.cuda.synchronize()
+    counts[name] = {**select_warp.launches, **knn.launches}
+torch.save(out, f"{d}/out.pt")
+assert "jax" not in sys.modules and "equiadapt_tpu" not in sys.modules
+print(json.dumps(counts))
+"""
+
+
+def export_phase(tp, sw, kn):
+    """Phase 22b: `utils.export` on the card. The serving pipeline
+    (serving_bf16.yaml, EXPORT_B x 224 px, the loader's NHWC batch: K3)
+    exported at a fixed and at a symbolic batch, the point-cloud
+    canonicalizer (phase 7's: VNSmall, fused kNN, PC_B x PC_N) and K8
+    alone; each graph holds its kernel's operator; each artifact loaded in
+    this process and in a fresh one (torch and equiadapt_tpu_torch only)
+    launches K3 / K8 once a call and answers as the live call: the logits
+    within the larger of two live calls' spread and one bf16 ulp of the
+    largest logit, the frames within 1e-6, the kNN indices equal. The
+    exported serving call timed in turns with the live one."""
+    import tempfile
+
+    from equiadapt_tpu_torch.cli import classification_serve as serve
+    from equiadapt_tpu_torch.utils.config import compose_config
+    from equiadapt_tpu_torch.utils.export import export_apply, load_exported
+
+    cfg_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLS_CONFIGS)
+    cfg = compose_config([f"config={cfg_dir}/serving_bf16.yaml",
+                          f"dataset.image_size={EXPORT_IMAGE}",
+                          f"experiment.batch_size={EXPORT_B}"], config_dir=serve.CONFIG_DIR)
+    torch.manual_seed(EXPORT_SEED)
+    pipe = serve.build_serving_pipeline(cfg, DEVICE).eval()
+    x = tp.synthetic_image_batch(torch.Generator(device=DEVICE).manual_seed(EXPORT_SEED),
+                                 EXPORT_B, size=EXPORT_IMAGE)["image"]
+    fwd = lambda p, b: p(b, training=False)[0]
+    pc = build_pointcloud(tp).canonicalizer
+    pts = anisotropic_clouds(torch.Generator().manual_seed(EXPORT_SEED)).to(DEVICE)
+
+    def frames(c, b):
+        x_c, info = c.canonicalize(b)
+        return x_c, info.element.rotation
+
+    knn_fn = lambda _, b: kn.knn_indices(b, PC_K)
+    out, blobs = {}, {}
+    with torch.no_grad():
+        live = {"fixed": fwd(pipe, x), "symbolic_small": fwd(pipe, x[:EXPORT_SMALL_B]),
+                "pointcloud": frames(pc, pts), "knn": knn_fn(None, pts)}
+        live["symbolic"] = live["fixed"]
+        again = fwd(pipe, x)
+        sync()
+        spread = (again.float() - live["fixed"].float()).abs().max().item()
+        top = live["fixed"].float().abs().max().item()
+        bar = max(spread, 2.0 ** (math.floor(math.log2(top)) - 7))
+        out["logit_bar"] = {"live_spread": spread, "bf16_ulp_of_max": bar, "max": top}
+        for name, args in (("fixed", (fwd, pipe, x)), ("symbolic", (fwd, pipe, x)),
+                           ("pointcloud", (frames, pc, pts)), ("knn", (knn_fn, None, pts))):
+            t0 = time.perf_counter()
+            blobs[name] = export_apply(*args, symbolic_batch=name == "symbolic")
+            out[f"{name}_export_s"] = time.perf_counter() - t0
+            out[f"{name}_bytes"] = len(blobs[name])
+            out[f"{name}_nodes"] = eqt_nodes(blobs[name])
+        assert out["fixed_nodes"] == out["symbolic_nodes"] == ["eqt.select_warp.default"], out
+        assert out["pointcloud_nodes"] == out["knn_nodes"] == ["eqt.knn_indices.default"], out
+
+    def agree(name, got):
+        ref = live[name]
+        if name == "knn":
+            return {"equal": bool(torch.equal(got, ref))}
+        if name == "pointcloud":
+            return {"max_abs_diff": max((a - b).abs().max().item()
+                                        for a, b in zip(got, ref))}
+        return {"max_abs_diff": (got.float() - ref.float()).abs().max().item()}
+
+    def held(rows):
+        for name, row in rows.items():
+            if name == "knn":
+                assert row["equal"], rows
+            elif name == "pointcloud":
+                assert row["max_abs_diff"] <= 1e-6, rows
+            else:
+                assert row["max_abs_diff"] <= bar, (rows, bar)
+
+    # in this process: one launch a call, the live call's answers
+    fns = {name: load_exported(blob) for name, blob in blobs.items()}
+    inputs = {"fixed": x, "symbolic": x, "symbolic_small": x[:EXPORT_SMALL_B],
+              "pointcloud": pts, "knn": pts}
+    in_process, counts = {}, {}
+    with torch.no_grad():
+        for name, batch in inputs.items():
+            fn = fns[name.split("_")[0]]
+            fn(batch)
+            sync()
+            sw.reset_launches()
+            kn.reset_launches()
+            got = fn(batch)
+            sync()
+            counts[name] = {**sw.launches, **kn.launches}
+            in_process[name] = agree(name, got)
+    held(in_process)
+    for name in ("fixed", "symbolic", "symbolic_small"):
+        assert counts[name] == {"select_planes_nhwc/bfloat16": 1}, counts
+    for name in ("pointcloud", "knn"):
+        assert counts[name] == {"knn_indices/float32/d<=4": 1}, counts
+    out.update(in_process=in_process, launches=counts)
+    # a fresh process that imports torch and equiadapt_tpu_torch only
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("fixed", "symbolic", "pointcloud", "knn"):
+            with open(os.path.join(tmp, f"{name}.pt2"), "wb") as f:
+                f.write(blobs[name])
+        torch.save(x, os.path.join(tmp, "x.pt"))
+        torch.save(pts, os.path.join(tmp, "pts.pt"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _FRESH_PROCESS % EXPORT_SMALL_B, tmp],
+            capture_output=True, text=True, cwd=root, timeout=600,
+            env=dict(os.environ, PYTHONPATH=root))
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        fresh_counts = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.load(os.path.join(tmp, "out.pt"))
+    fresh = {name: agree(name, got[name]) for name in got}
+    held(fresh)
+    assert fresh_counts == counts, (fresh_counts, counts)
+    out.update(fresh_process=fresh, fresh_process_s=time.perf_counter() - t0,
+               fresh_process_launches=fresh_counts)
+    # the exported serving call against the live one, in turns
+    with torch.no_grad():
+        timed = windowed_ms({"live_ms": lambda: fwd(pipe, x),
+                             "exported_ms": lambda: fns["fixed"](x),
+                             "exported_symbolic_ms": lambda: fns["symbolic"](x)}, reps=5)
+    out["times"] = timed
+    for key in ("live", "exported", "exported_symbolic"):
+        out["times"][f"{key}_img_per_s"] = EXPORT_B / timed[f"{key}_ms"] * 1e3
+    del fns, blobs, live, x, pts, pc
+    torch.cuda.empty_cache()
+    log(f"export: {json.dumps(out)}")
+    return out, pipe
+
+
+def build_detector(tp, seed, image=None):
+    """MaskRCNNLite at config 5's scale (DET_CLASSES classes, DET_K
+    instances, DET_CH channels) with the ResNet-50 trunk converted from a
+    random torchvision-layout state dict; built on the CPU from `seed`."""
+    from equiadapt_tpu_torch.cli.maskrcnn_lite_experiment import random_resnet50_state_dict
+    from equiadapt_tpu_torch.models import MaskRCNNLite, convert_resnet_checkpoint
+
+    torch.manual_seed(seed)
+    model = MaskRCNNLite(num_classes=DET_CLASSES, max_instances=DET_K, channels=DET_CH,
+                         backbone="resnet50", device="cpu")
+    model.backbone.load_state_dict(convert_resnet_checkpoint(
+        random_resnet50_state_dict(seed), model.backbone.state_dict()))
+    return model
+
+
+def det_batch(tp, seed, b, size, device):
+    from equiadapt_tpu_torch.data.coco import synthetic_coco_batch
+
+    return synthetic_coco_batch(torch.Generator(device=device).manual_seed(seed), b,
+                                size, DET_K)
+
+
+def det_vs_cpu(model, images, out, m=1):
+    """The first `m` samples of the eval on the CPU: the dense outputs and
+    the detections' scores within DET_CPU_BAR of each one's largest value;
+    where the CPU's top-(K + 1) objectness gaps exceed that bar (so both
+    devices pick the same locations), the labels and validity equal, the
+    boxes within DET_CPU_BAR and the masks and IoUs of the predicted
+    prompts within DET_MASK_BAR (the boxes' rounding enters the prompts'
+    Fourier features, amplified: 5e-5 between two CPU runs at 128 px)."""
+    cpu = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        ref = cpu(images[:m].cpu())
+    rows, K = {}, DET_K
+    for k, v in ref.items():
+        if k == "stride":
+            continue
+        got = out[k][:m].cpu()
+        rows[k] = ((got.double() - v.double()).abs().max()
+                   / v.double().abs().max().clamp(min=1e-30)).item()
+    top = ref["obj_logits"].reshape(m, -1).sort(dim=-1, descending=True).values[:, :K + 1]
+    gap = (top[:, :-1] - top[:, 1:]).min().item()
+    scale = ref["obj_logits"].abs().max().item()
+    clear = gap > DET_CPU_BAR * scale
+    for k, v in rows.items():
+        if k in ("obj_logits", "cls_logits", "dense_boxes", "det_scores"):
+            assert v <= DET_CPU_BAR, (k, rows)
+        elif clear:
+            assert v <= {"det_labels": 0.0, "det_valid": 0.0, "det_boxes": DET_CPU_BAR}.get(
+                k, DET_MASK_BAR), (k, rows)
+    del cpu
+    return {"rel": rows, "min_top_gap": gap, "clear": clear}
+
+
+def det_grad_metrics(model):
+    sq = {}
+    for name, child in model.named_children():
+        sq[f"grad/{name}/norm"] = math.sqrt(sum(
+            float(torch.sum(p.grad.double() ** 2)) for p in child.parameters()
+            if p.grad is not None))
+    return sq
+
+
+def det_step_vs_cpu(tp):
+    """One train step at DET_CPU_IMAGE px, batch DET_CPU_B (SGD 0.01, ground-
+    truth prompts) from the same weights on the card and on the CPU: the
+    loss, each top-level module's gradient norm and update norm against the
+    CPU's, each bar the larger of phase 12's (1e-4 loss, 1e-3 gradients,
+    5e-2 updates) and three times the CPU's own difference under a 1e-7
+    relative perturbation of the images; BatchNorm statistics of the trunk
+    within 1e-4 (phases 20-21's rule)."""
+    model = build_detector(tp, DET_SEED + 1).to(DEVICE)
+    batch = det_batch(tp, DET_SEED + 2, DET_CPU_B, DET_CPU_IMAGE, "cpu")
+    noise = torch.randn(batch["image"].shape, generator=torch.Generator().manual_seed(3))
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    cpu = copy.deepcopy(model).to("cpu")
+    runs = [(DEVICE, model, batch["image"]), ("cpu", cpu, batch["image"]),
+            ("cpu", copy.deepcopy(cpu), batch["image"] * (1.0 + 1e-7 * noise))]
+    res = []
+    for dev, net, img in runs:
+        opt = torch.optim.SGD(net.parameters(), lr=0.01)
+        tg = {k: v.to(dev) for k, v in batch["targets"].items()}
+        o = net(img.to(dev), tg["boxes"], training=True)
+        loss, _ = tp.models.maskrcnn_lite_loss(o, tg)
+        opt.zero_grad()
+        loss.backward()
+        metrics = {"loss/total": loss.item(), **det_grad_metrics(net)}
+        opt.step()
+        res.append((metrics, {k: v.detach().cpu() for k, v in net.state_dict().items()}))
+
+    def diff(a, b):
+        (ma, sa), (mb, sb) = a, b
+        d = {"loss_rel": abs(ma["loss/total"] - mb["loss/total"]) / abs(mb["loss/total"]),
+             "grad_norm_rel": {k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
+                               for k in mb if k.startswith("grad/")}}
+        upd, stats = {}, 0.0
+        for top in dict(model.named_children()):
+            d2 = r2 = 0.0
+            for k in sb:
+                if not k.startswith(top + ".") or k.endswith("num_batches_tracked"):
+                    continue
+                if k.endswith(("running_mean", "running_var")):
+                    stats = max(stats, ((sa[k] - sb[k]).abs().max()
+                                        / sb[k].abs().max().clamp(min=1e-30)).item())
+                    continue
+                d2 += ((sa[k] - sb[k]) ** 2).sum().item()
+                r2 += ((sb[k] - before[k]) ** 2).sum().item()
+            upd[top] = math.sqrt(d2 / max(r2, 1e-30))
+        d["update_rel"], d["bn_stats_rel"] = upd, stats
+        return d
+
+    out, own = diff(res[0], res[1]), diff(res[2], res[1])
+    out["cpu_spread"] = own
+    out["bars"] = {
+        "loss_rel": max(1e-4, 3 * own["loss_rel"]),
+        "grad_norm_rel": {k: max(1e-3, 3 * v) for k, v in own["grad_norm_rel"].items()},
+        "update_rel": {k: max(5e-2, 3 * v) for k, v in own["update_rel"].items()},
+        "bn_stats_rel": max(1e-4, 3 * own["bn_stats_rel"])}
+    del model, cpu, runs
+    torch.cuda.empty_cache()
+    return held_to_bars(out)
+
+
+def detection_phase(tp, mods):
+    """Phase 22c: MaskRCNNLite at config 5's scale (DET_IMAGE px, the
+    converted ResNet-50 trunk): the eval at batch DET_B (predicted-box
+    prompts; no kernel launch, asserted), its first sample against the CPU,
+    ms and peak memory; the AdamW train step at batch DET_TRAIN_B
+    (ground-truth prompts), ms and peak memory, every module moved; one
+    step against the CPU (`det_step_vs_cpu`); the experiment
+    (`cli.maskrcnn_lite_experiment`) for DET_EXPERIMENT_STEPS steps end to
+    end."""
+    import tempfile
+
+    from equiadapt_tpu_torch.cli import maskrcnn_lite_experiment as experiment
+
+    model = build_detector(tp, DET_SEED).to(DEVICE)
+    batch = det_batch(tp, DET_SEED, DET_B, DET_IMAGE, DEVICE)
+    images = batch["image"]
+    out = {}
+    with torch.no_grad():
+        for mod in mods:
+            mod.reset_launches()
+        res = model(images)
+        sync()
+        assert not any(mod.launches for mod in mods), [mod.launches for mod in mods]
+        assert res["pred_masks"].shape == (DET_B, DET_K, DET_IMAGE, DET_IMAGE)
+        assert res["stride"] == 8, res["stride"]
+        for k, v in res.items():
+            if k != "stride":
+                assert bool(torch.isfinite(v.float()).all()), k
+        out["cpu"] = det_vs_cpu(model, images, res)
+        log(f"detection vs CPU: {json.dumps(out['cpu'])}")
+        del res
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["eval_ms"] = cuda_ms(lambda: model(images), reps=3, warmup=1)
+        out["eval_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["eval_images_per_s"] = DET_B / out["eval_ms"] * 1e3
+    del batch, images
+    torch.cuda.empty_cache()
+    tb = det_batch(tp, DET_SEED + 3, DET_TRAIN_B, DET_IMAGE, DEVICE)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def step():
+        o = model(tb["image"], tb["targets"]["boxes"], training=True)
+        loss, parts = tp.models.maskrcnn_lite_loss(o, tb["targets"])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return parts
+
+    with torch.enable_grad():
+        torch.cuda.reset_peak_memory_stats()
+        first = {k: v.item() for k, v in step().items()}
+        assert all(math.isfinite(v) for v in first.values()), first
+        moved = {top: any(not torch.equal(v, before[k]) for k, v in model.state_dict().items()
+                          if k.startswith(top + ".") and v.is_floating_point())
+                 for top in dict(model.named_children())}
+        assert all(moved.values()), moved
+        out["train_step_ms"] = cuda_ms(step, reps=3, warmup=0)
+        out["train_step_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["train_images_per_s"] = DET_TRAIN_B / out["train_step_ms"] * 1e3
+        out["train_first_losses"] = first
+        del model, opt, tb, before
+        torch.cuda.empty_cache()
+        out["train_vs_cpu"] = det_step_vs_cpu(tp)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            record = experiment.main(["--steps", str(DET_EXPERIMENT_STEPS), "--out",
+                                      os.path.join(tmp, "maskrcnn_lite.json")],
+                                     device=DEVICE)
+    out["experiment"] = {"wall_s": time.perf_counter() - t0,
+                     "final_train_losses": record["final_train_losses"],
+                     "segm_map": record["eval_segm_map_coco101"],
+                     "det_iou": record["eval_det_mean_best_iou"], "device": record["device"]}
+    assert all(math.isfinite(v) for v in record["final_train_losses"].values()), record
+    log(f"detection: {json.dumps(out)}")
+    return out
+
+
+def loader_phase(sw, pipe):
+    """Phase 22d: the native batch loader. LOADER_RECORDS random 224 px
+    uint8 images (with their row index) in a record file; two epochs of
+    batches of LOADER_B: each batch equals the source rows its order names
+    (`batch_records`, the C++ order replayed in Python); the loader alone
+    (batches/s), then loader -> card -> the serving pipeline (img/s; K3
+    once a batch)."""
+    import tempfile
+
+    import numpy as np
+
+    from equiadapt_tpu_torch.native import loader as nl
+
+    rng = np.random.default_rng(LOADER_SEED)
+    images = rng.integers(0, 256, (LOADER_RECORDS, LOADER_IMAGE, LOADER_IMAGE, 3),
+                          dtype=np.uint8)
+    n = 2 * (LOADER_RECORDS // LOADER_B)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "images.bin")
+        spec = nl.write_record_file(path, {"image": images,
+                                           "index": np.arange(LOADER_RECORDS)})
+
+        def loader():
+            return nl.NativeBatchLoader(path, spec, LOADER_B, num_threads=LOADER_THREADS,
+                                        seed=LOADER_SEED)
+
+        with loader() as ld:
+            for i in range(n):
+                b = ld.next()
+                rows = nl.batch_records(spec, LOADER_B, i, LOADER_SEED)
+                assert np.array_equal(b["index"], rows), i
+                assert np.array_equal(b["image"], images[rows]), i
+        with loader() as ld:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                ld.next()
+            out["loader_batches_per_s"] = n / (time.perf_counter() - t0)
+        sw.reset_launches()
+        with torch.no_grad(), loader() as ld:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                x = torch.from_numpy(ld.next()["image"]).to(DEVICE).float().div_(255.0)
+                logits, _ = pipe(x, training=False)
+            float(logits.float().sum())  # waits for the device
+            dt = time.perf_counter() - t0
+    out.update(end_to_end_img_per_s=n * LOADER_B / dt, batches=n,
+               launches=dict(sw.launches))
+    out["loader_img_per_s"] = out["loader_batches_per_s"] * LOADER_B
+    assert out["launches"] == {"select_planes_nhwc/bfloat16": n}, out
+    assert bool(torch.isfinite(logits.float()).all())
+    log(f"native loader: {json.dumps(out)}")
+    return out
+
+
+def item15_phase(tp, sw, orb, kn, src_log, mods):
+    """Phase 22: item 15 on the card (see the module docstring)."""
+    with torch.enable_grad():  # the CLI trains
+        out = {"pretrained": pretrained_phase(tp, sw, orb, src_log)}
+    out["export"], pipe = export_phase(tp, sw, kn)
+    out["native_loader"] = loader_phase(sw, pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    out["detection"] = detection_phase(tp, mods)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -4192,7 +4716,8 @@ def main() -> int:
                 f"{row['stack_frame']} bytes stack frame, "
                 f"spills {row['spill_stores']} / {row['spill_loads']} bytes, "
                 f"{row['smem']} bytes static smem")
-    for src in ("select_warp", "shear_rotate", "orbit"):  # no local memory
+    for src in ("select_warp", "shear_rotate", "orbit", "bilinear_warp", "knn"):
+        # no local memory in any kernel
         rows = results["ptxas"][src]
         assert rows and all(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0
                             for r in rows), (src, rows)
@@ -4488,6 +5013,21 @@ def main() -> int:
                              for k, v in row["launches"].items()})
             add_paths(row["paths"])
         add_paths(seg["paths"])
+        # item 15 (phase 22): pretrained weights, export, the native loader,
+        # MaskRCNNLite
+        times["item15"] = it15 = item15_phase(tp, sw, orb, kn, src_log, (sw, sr, bw, kn, orb))
+        pre = it15["pretrained"]
+        for run, counts in (("cli_pretrained", pre["train"]),
+                            ("cli_pretrained_test", pre["test_counts"])):
+            launches.update({f"{run}:{k}": v for k, v in counts["launches"].items()})
+            add_paths(counts["paths"])
+        for run, counts in it15["export"]["launches"].items():
+            if run.startswith(("fixed", "symbolic")):
+                launches.update({f"export_{run}:{k}": v for k, v in counts.items()})
+        launches.update({f"native_loader:{k}": v
+                         for k, v in it15["native_loader"]["launches"].items()})
+        pc_train_launches.update({f"export_{run}": it15["export"]["launches"][run]
+                                  for run in ("pointcloud", "knn")})
         for key, row in times["continuous_train"].items():
             launches.update({f"continuous_train_{key}:{k}": v
                              for k, v in row["launches"].items()})
@@ -4549,6 +5089,7 @@ def main() -> int:
         cli_checked = [row for run in cli_runs.values() for row in run["checked"]]
         cli_checked += [row for run in pc_train["cli"].values() for row in run["checked"]]
         cli_checked += [row for run in ("train", "test") for row in seg["cli"][run]["checked"]]
+        cli_checked += pre["train"]["checked"] + pre["test_counts"]["checked"]
         # K1a and K3 at config 5's shapes (phase 21): the rows of
         # `seg_kernel_rows` and the launches of its eval path
         seg_rows = {"select_planes[float32,1 source]": "select_planes",
@@ -4627,10 +5168,26 @@ def main() -> int:
         "kernels": {k: {f: row[f] for f in ("shape", "ms", "bound_ms", "library_ms",
                                               "plain_ms")}
                     for k, row in sg["kernels"].items()}}}))
+    ex, dt, nl = it15["export"], it15["detection"], it15["native_loader"]
+    log(json.dumps({"item15": {
+        "device": smi,
+        "pretrained": {k: pre[k] for k in ("converted_tensors", "equal_before_first_step",
+                                           "train_loss")},
+        "export": {"times": ex["times"], "logit_bar": ex["logit_bar"],
+                   "in_process": ex["in_process"], "fresh_process": ex["fresh_process"],
+                   "launches": ex["launches"],
+                   "bytes": {k: ex[f"{k}_bytes"] for k in ("fixed", "symbolic")},
+                   "export_s": {k: ex[f"{k}_export_s"] for k in ("fixed", "symbolic",
+                                                                  "pointcloud", "knn")}},
+        "detection": {k: dt[k] for k in ("eval_ms", "eval_images_per_s", "eval_peak_mem_gib",
+                                         "train_step_ms", "train_images_per_s",
+                                         "train_step_peak_mem_gib", "experiment")},
+        "native_loader": {k: nl[k] for k in ("loader_batches_per_s", "loader_img_per_s",
+                                             "end_to_end_img_per_s")}}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -57,6 +57,14 @@ Ported so far:
   network runs fastest on (`to_network_layout`), with the config taxonomy
   and the registries.
 
+* the harness: torchvision checkpoints onto the port's networks
+  (`models.convert`, the CLI's `prediction.pretrained=true`),
+  `models.MaskRCNNLite` and `cli.maskrcnn_lite_experiment`, the native
+  batch loader (`native`, host C++ built at first use) and `torch.export`
+  artifacts (`utils.export`; every kernel launch is a registered
+  `torch.ops.eqt` operator, so artifacts keep the kernels; importing this
+  package registers them).
+
 Every family, its networks and the ResNets take `training` as an argument
 and ignore the torch module mode.
 """

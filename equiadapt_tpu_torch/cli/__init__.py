@@ -1,6 +1,7 @@
 """Command-line entry points of the port (`python -m equiadapt_tpu_torch.cli.<name>`):
 `classification_train`, `classification_serve`, `nbody_train`,
-`pointcloud_train`, `partseg_train` and `segmentation_train`."""
+`pointcloud_train`, `partseg_train`, `segmentation_train` and
+`maskrcnn_lite_experiment`."""
 
 import torch
 

@@ -14,11 +14,15 @@ synthetic batches and prints the throughput:
         dataset.image_size=224
 
 Overrides as in `classification_train`; with a checkpoint path, its saved
-config is the starting point. `--export=PATH` (a StableHLO artifact in the
-JAX package) needs `utils/export.py`, not ported yet (ROADMAP.md item 15),
-and raises. `main(argv, device="cuda")` runs on the card unless asked for
-the CPU; it returns {"images_per_s", "warmup_s", "pipeline"} (the
-pipeline it served).
+config is the starting point. `--export=PATH` also writes the serving
+forward (`pipeline(x)[0]`, the logits) at the served batch shape as a
+`torch.export` artifact (`utils.export.export_apply`; the JAX CLI writes
+StableHLO) and prints its size; it keeps the hand kernels' launches and
+runs on the device it was exported on (load it with
+`utils.export.load_exported` after importing `equiadapt_tpu_torch`).
+`main(argv, device="cuda")` runs on the card unless asked for the CPU; it
+returns {"images_per_s", "warmup_s", "pipeline", "export_bytes"} (the
+pipeline it served; the artifact's size, or None).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from equiadapt_tpu_torch.pipelines.classification import (
 )
 from equiadapt_tpu_torch.utils.checkpoint import restore_checkpoint, restore_config
 from equiadapt_tpu_torch.utils.config import Config, compose_config
+from equiadapt_tpu_torch.utils.export import export_apply
 
 NUM_BATCHES = 5
 
@@ -52,9 +57,9 @@ def build_serving_pipeline(cfg: Config, device) -> ImageClassifierPipeline:
 
 def main(argv, device="cuda"):
     argv = list(argv)
-    if any(a.startswith("--export=") for a in argv):
-        raise NotImplementedError(
-            "--export needs utils/export.py, not ported yet (ROADMAP.md item 15)")
+    export_path = next((a.split("=", 1)[1] for a in argv if a.startswith("--export=")),
+                       None)
+    argv = [a for a in argv if not a.startswith("--export=")]
     cfg = compose_config(argv, config_dir=CONFIG_DIR)
     # restore only from a checkpoint the user named (the default path must
     # not pick up a stray directory)
@@ -92,6 +97,14 @@ def main(argv, device="cuda"):
             float(logits.float().sum())  # waits for the device
             warmup = time.perf_counter() - t0
             print(f"warm-up: {warmup:.1f}s (batch {B} @ {size}px)")
+            export_bytes = None
+            if export_path:
+                blob = export_apply(lambda p, xb: p(xb, training=False)[0], pipe, x)
+                with open(export_path, "wb") as f:
+                    f.write(blob)
+                export_bytes = len(blob)
+                print(f"exported torch.export artifact: {export_path} "
+                      f"({export_bytes} bytes)")
             t0 = time.perf_counter()
             for i in range(NUM_BATCHES):
                 logits, _ = pipe(batch(1 + i), training=False)
@@ -101,7 +114,8 @@ def main(argv, device="cuda"):
         torch.backends.cudnn.benchmark = benchmark
     rate = NUM_BATCHES * B / dt
     print(f"served {NUM_BATCHES} batches: {rate:.1f} images/s")
-    return {"images_per_s": rate, "warmup_s": warmup, "pipeline": pipe}
+    return {"images_per_s": rate, "warmup_s": warmup, "pipeline": pipe,
+            "export_bytes": export_bytes}
 
 
 if __name__ == "__main__":

@@ -28,9 +28,11 @@ Run modes (`experiment.run_mode`):
 `main(argv, device="cuda")` runs on the card unless asked for the CPU; it
 returns the train state (train modes) or the test metrics (test mode).
 Random draws come from one `torch.Generator` per stream of a run seeded
-`experiment.seed`. Not ported yet, and refused: pretrained weights
-(`models/convert.py`, ROADMAP.md item 15) and more than one device or node
-(`parallel/`, item 16).
+`experiment.seed`. `prediction.pretrained=true` loads the torchvision
+checkpoint at `prediction.pretrained_path` into the prediction network
+through `models.convert` (`prediction.freeze_encoder` then leaves it out of
+the optimizer), as the JAX CLI does. Not ported yet, and refused: more than
+one device or node (`parallel/`, ROADMAP.md item 16).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch
 from equiadapt_tpu_torch.cli import generator
 from equiadapt_tpu_torch.data import synthetic_image_batch
 from equiadapt_tpu_torch.data.images import get_image_dataset
+from equiadapt_tpu_torch.models.convert import apply_pretrained_to_state
 from equiadapt_tpu_torch.pipelines.classification import (
     ImageClassifierPipeline,
     create_train_state,
@@ -158,7 +161,18 @@ def build_state(cfg: Config, device, learning_rate=None):
         weight_decay=cfg.experiment.weight_decay,
         freeze_prediction=cfg.prediction.freeze_encoder,
     )
-    return create_train_state(pipe, tx)
+    state = create_train_state(pipe, tx)
+    if cfg.prediction.pretrained:
+        if not cfg.prediction.pretrained_path:
+            raise ValueError(
+                "prediction.pretrained=true needs prediction.pretrained_path "
+                "(a local torchvision .pth; no egress to download DEFAULT "
+                "weights — see models/convert.py)")
+        apply_pretrained_to_state(state, cfg.prediction.architecture,
+                                  cfg.prediction.pretrained_path)
+        print(f"loaded pretrained {cfg.prediction.architecture} weights "
+              f"from {cfg.prediction.pretrained_path}")
+    return state
 
 
 def run_test(cfg: Config, state, device) -> Dict[str, float]:
@@ -181,10 +195,6 @@ def main(argv, device="cuda"):
         raise NotImplementedError(
             "training on more than one device or node needs parallel/, not "
             "ported yet (ROADMAP.md item 16)")
-    if cfg.prediction.pretrained:
-        raise NotImplementedError(
-            "prediction.pretrained=true needs models/convert.py, not ported "
-            "yet (ROADMAP.md item 15)")
     seed = cfg.experiment.seed
     path = cfg.checkpoint.checkpoint_path
     state = build_state(cfg, device)

@@ -1,5 +1,14 @@
 """Prediction networks."""
 
+from equiadapt_tpu_torch.models.convert import (
+    apply_pretrained_to_state,
+    convert_resnet_checkpoint,
+    convert_vit_checkpoint,
+    load_pretrained_prediction,
+    load_torch_state_dict,
+)
+from equiadapt_tpu_torch.models.detection import MaskRCNNLite, decode_boxes, maskrcnn_lite_loss
+
 from equiadapt_tpu_torch.models.egnn import (
     GCL,
     GCLRF,
@@ -42,7 +51,10 @@ from equiadapt_tpu_torch.models.resnet import (
     WideResNet101,
 )
 
-__all__ = ["GCL", "GCLRF", "GNN", "NBodyMLP", "NBodyTransformer",
+__all__ = ["MaskRCNNLite", "maskrcnn_lite_loss", "decode_boxes",
+           "apply_pretrained_to_state", "convert_resnet_checkpoint",
+           "convert_vit_checkpoint", "load_pretrained_prediction",
+           "load_torch_state_dict", "GCL", "GCLRF", "GNN", "NBodyMLP", "NBodyTransformer",
            "edge_attributes", "positional_encoding",
            "DGCNN", "DGCNNPartSeg", "PointNet", "TransformNet", "get_graph_feature", "BasicBlock", "Bottleneck",
            "ResNet", "ResNet18", "ResNet50", "WideResNet50", "WideResNet101",

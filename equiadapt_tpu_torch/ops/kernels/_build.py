@@ -11,6 +11,13 @@ one nvcc per source at once, for a caller that wants every kernel ready.
 Nothing here runs when a module is imported, and nothing here is reached for
 CPU tensors: `route` sends the wrappers to their plain PyTorch versions
 there.
+
+Every wrapper launches through a custom operator registered with
+`torch.library` in the namespace `OP_NAMESPACE` (`register_op`, one a
+launch function, defined beside it), whose fake implementation gives the
+output's shape and dtype without a card. A `torch.export` trace on the card
+therefore records the launch as a graph node; the artifact loads wherever
+`equiadapt_tpu_torch` is imported, which registers the operators.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, Sequence
+from typing import Callable, Dict, Iterable, Iterator, Sequence
 
 import torch
 
@@ -36,6 +43,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the namespace of the kernels' registered operators (`torch.ops.eqt.*`)
+OP_NAMESPACE = "eqt"
+_OPS = torch.library.Library(OP_NAMESPACE, "DEF")
 
 # dtype codes of the C interfaces (every csrc/*.cu): 0 = float32, 1 = bfloat16
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,6 +120,19 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]
+
+
+def register_op(schema: str, launch: Callable, fake: Callable) -> torch._ops.OpOverload:
+    """Define `OP_NAMESPACE::<schema>` with `launch` as its kernel on every
+    device and `fake` as its fake (and meta) implementation; returns the
+    operator. Defined with `torch.library.Library` rather than
+    `torch.library.custom_op`, whose Python layers cost about four times
+    the host time a call (`tools/op_dispatch_times.py`)."""
+    name = schema.split("(")[0]
+    _OPS.define(schema)
+    _OPS.impl(name, launch, "CompositeExplicitAutograd")
+    torch.library.register_fake(f"{OP_NAMESPACE}::{name}", fake, lib=_OPS)
+    return getattr(getattr(torch.ops, OP_NAMESPACE), name).default
 
 
 def whole_words(*tensors) -> bool:

@@ -99,7 +99,7 @@ def warp_rotate_center_exact(x: Tensor, R: Tensor,
     if where == "cpu":
         return _warp_center_affine(x, R, padding_mode)
     _build.refuse_grad([x, R], _KERNELS, _DIFFERENTIABLE)
-    return _launch(x, R, padding_mode)
+    return _warp_op(x, R, padding_mode)
 
 
 def _path(x: Tensor, out: Tensor) -> str:
@@ -107,6 +107,13 @@ def _path(x: Tensor, out: Tensor) -> str:
     pixel is whole words and both pointers are 16-byte aligned, "element"
     otherwise."""
     return "word" if _build.whole_words(x, out) else "element"
+
+
+# K7 as a registered operator around `_launch` (`_build.register_op`)
+_warp_op = _build.register_op(
+    "warp_rotate_center_exact(Tensor x, Tensor R, str padding_mode) -> Tensor",
+    lambda x, R, padding_mode: _launch(x, R, padding_mode),
+    lambda x, R, padding_mode: x.new_empty(x.shape))
 
 
 def _launch(x: Tensor, R: Tensor, padding_mode: str) -> Tensor:

@@ -154,7 +154,15 @@ def knn_indices(points: Tensor, k: int) -> Tensor:
         return points.new_empty((points.shape[0], N, k), dtype=torch.int32)
     if where == "cpu":
         return knn_indices_plain(points, k)
-    return _launch(points, k)
+    return _knn_op(points, k)
+
+
+# K8 as a registered operator around `_launch` (`_build.register_op`)
+_knn_op = _build.register_op(
+    "knn_indices(Tensor points, int k) -> Tensor",
+    lambda points, k: _launch(points, k),
+    lambda points, k: points.new_empty((points.shape[0], points.shape[1], k),
+                                       dtype=torch.int32))
 
 
 def _launch(points: Tensor, k: int) -> Tensor:

@@ -126,7 +126,7 @@ def rot90_flip_orbit(x: Tensor, num_rotations: int = 4,
                        "its callers (the optimized canonicalizer, in training "
                        "too, and group_inference) hand it data, which needs "
                        "no gradient")
-    return _launch(x.contiguous(), ks, flips)
+    return _orbit_op(x.contiguous(), [int(k) for k in ks], [bool(f) for f in flips])
 
 
 def _orbit_path(x: Tensor, out: Tensor) -> str:
@@ -168,6 +168,13 @@ def _launch(x: Tensor, ks, flips) -> Tensor:
     launches[key] = launches.get(key, 0) + 1
     path_launches[f"{key}/{path}"] = path_launches.get(f"{key}/{path}", 0) + 1
     return out
+
+
+# K4 as a registered operator around `_launch` (`_build.register_op`)
+_orbit_op = _build.register_op(
+    "rot90_flip_orbit(Tensor x, int[] ks, bool[] flips) -> Tensor",
+    lambda x, ks, flips: _launch(x, tuple(ks), tuple(flips)),
+    lambda x, ks, flips: x.new_empty((len(ks),) + tuple(x.shape)))
 
 
 def materialize_orbit(x: Tensor, num_rotations: int,

@@ -14,10 +14,13 @@ The sources S are the batch and its static residual warps (`_c_n_decomposition`:
 rotate(x, sign * theta_g) == rot90^{k_of[g]}(rotate(x, residues[src_of[g]]))).
 Each wrapper launches the hand-written CUDA kernel of `csrc/select_warp.cu`
 for CUDA tensors, takes the plain PyTorch version beside it for CPU
-tensors, and raises for anything else. Each is a `torch.autograd.Function`:
-the select is linear in its sources, and its backward is one more launch of
-the same kernel (the inverse permutation, with the cotangent as the only
-source), then a mask per source. No gradient reaches the indices.
+tensors, and raises for anything else; the launch is the registered
+operator `eqt::select_warp` (`_select_op`, `_build.register_op`), whose
+fake implementation gives `torch.export` the output's shape and dtype, so
+an exported graph launches the kernel. Each wrapper is a
+`torch.autograd.Function`: the select is linear in its sources, and its
+backward is one more launch of the same kernel (the inverse permutation,
+with the cotangent as the only source), then a mask per source. No gradient reaches the indices.
 `launches` counts the kernel launches of each wrapper, by dtype, backward
 launches included; `path_launches` counts them again by launch path (K1 and
 K2: "word" or "element", `_rolled_path`; K3: "word" or "tile",
@@ -241,6 +244,18 @@ def _launch(name: str, sources, src_idx, k_idx, shift, refl, G, n) -> Tensor:
     return out
 
 
+def _select_fake(name, sources, src_idx, k_idx, shift, refl, G, n):
+    return sources[0].new_empty(sources[0].shape)
+
+
+# K1 / K2 / K3 (`name`) as a registered operator around `_launch`, so that a
+# `torch.export` graph keeps the launch
+_select_op = _build.register_op(
+    "select_warp(str name, Tensor[] sources, Tensor src_idx, Tensor k_idx, "
+    "Tensor? shift, Tensor? refl, int G, int n) -> Tensor",
+    lambda *args: _launch(*args), _select_fake)
+
+
 def _select(name: str, sources, src_idx, k_idx, shift=None, refl=None,
             G: int = 1, n: int = 1) -> Tensor:
     """The kernel `name` on CUDA tensors, its plain version on CPU tensors."""
@@ -253,7 +268,7 @@ def _select(name: str, sources, src_idx, k_idx, shift=None, refl=None,
         if name == _NHWC:
             return select_planes_nhwc_plain(sources, src_idx, k_idx)
         return select_planes_plain(sources, src_idx, k_idx, shift, refl, G, n)
-    return _launch(name, sources, src_idx, k_idx, shift, refl, G, n)
+    return _select_op(name, list(sources), src_idx, k_idx, shift, refl, G, n)
 
 
 class _Select(torch.autograd.Function):

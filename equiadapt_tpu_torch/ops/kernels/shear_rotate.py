@@ -187,7 +187,7 @@ def rot90_centered_select(x: Tensor, k_idx: Tensor, cx: int, cy: int,
     if where == "cpu":
         return rot90_centered_select_plain(x, k_idx, cx, cy, padding_mode)
     _build.refuse_grad([x], "the quarter-turn kernel (K5)", _DIFFERENTIABLE)
-    return _launch_select(x, k_idx, cx, cy, padding_mode)
+    return _select_op(x, k_idx, int(cx), int(cy), padding_mode)
 
 
 def _select_path(x: Tensor, out: Tensor) -> str:
@@ -195,6 +195,14 @@ def _select_path(x: Tensor, out: Tensor) -> str:
     whole words and both pointers are 16-byte aligned, "tile" (32 x 32 tiles
     through shared memory) otherwise."""
     return "word" if _build.whole_words(x, out) else "tile"
+
+
+# K5 as a registered operator around `_launch_select` (`_build.register_op`)
+_select_op = _build.register_op(
+    "rot90_centered_select(Tensor x, Tensor k_idx, int cx, int cy, "
+    "str padding_mode) -> Tensor",
+    lambda *args: _launch_select(*args),
+    lambda x, k_idx, cx, cy, padding_mode: x.new_empty(x.shape))
 
 
 def _launch_select(x: Tensor, k_idx: Tensor, cx: int, cy: int,
@@ -284,7 +292,7 @@ def shear_rotate_residual(z: Tensor, r: Tensor, cx: float, cy: float,
     if where == "cpu":
         return shear_rotate_residual_plain(z, r, cx, cy, padding_mode)
     _build.refuse_grad([z, r], "the three-shear kernel (K6)", _DIFFERENTIABLE)
-    return _launch_shear(z, r, cx, cy, padding_mode)
+    return _shear_op(z, r, float(cx), float(cy), padding_mode)
 
 
 def _resident_bytes(H: int, W: int) -> int:
@@ -321,6 +329,14 @@ def _shear_words(z: Tensor, out: Tensor, cluster: int) -> bool:
     """Whether a resident cluster moves 16-byte words: its run of channels
     and a pixel are whole words and both pointers 16-byte aligned."""
     return (cluster * z.element_size()) % 16 == 0 and _build.whole_words(z, out)
+
+
+# K6 as a registered operator around `_launch_shear` (`_build.register_op`)
+_shear_op = _build.register_op(
+    "shear_rotate_residual(Tensor z, Tensor r, float cx, float cy, "
+    "str padding_mode) -> Tensor",
+    lambda *args: _launch_shear(*args),
+    lambda z, r, cx, cy, padding_mode: z.new_empty(z.shape))
 
 
 def _launch_shear(z: Tensor, r: Tensor, cx: float, cy: float,

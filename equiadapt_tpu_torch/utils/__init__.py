@@ -13,6 +13,11 @@ from equiadapt_tpu_torch.utils.config import (
     compose_config,
     load_yaml,
 )
+from equiadapt_tpu_torch.utils.export import (
+    export_apply,
+    export_sharded_apply,
+    load_exported,
+)
 from equiadapt_tpu_torch.utils.jax_weights import flax_variables, load_flax_variables
 from equiadapt_tpu_torch.utils.registry import (
     get_image_canonicalization_network,
@@ -36,6 +41,9 @@ __all__ = [
     "TrainingLossConfig",
     "compose_config",
     "load_yaml",
+    "export_apply",
+    "export_sharded_apply",
+    "load_exported",
     "flax_variables",
     "load_flax_variables",
     "get_image_canonicalization_network",

@@ -5,8 +5,7 @@ the same registry keys, so a `Config` resolves to the same module tree in
 both packages (weights carried across by `load_flax_variables`). Modules are
 built on `device` ("cuda" unless the caller asks for the CPU).
 
-A key whose module is not ported yet raises `NotImplementedError` naming
-its ROADMAP.md item; nothing falls back to another network. Torch modules
+An unknown key raises; nothing falls back to another network. Torch modules
 are built at their input widths, so the ViT and SAM factories take the
 image size, which the Flax modules read from their input.
 """
@@ -45,6 +44,7 @@ from equiadapt_tpu_torch.models import (
     ResNet18,
     ResNet50,
 )
+from equiadapt_tpu_torch.models.detection import MaskRCNNLite
 from equiadapt_tpu_torch.models.segmentation import SAMLite
 from equiadapt_tpu_torch.models.vit import ViT
 from equiadapt_tpu_torch.nbody import EuclideanGroupNBody, VNDeepSets
@@ -65,10 +65,6 @@ __all__ = [
     "get_nbody_canonicalizer",
     "get_nbody_prediction_network",
 ]
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md item {item})")
 
 
 def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
@@ -223,15 +219,16 @@ def get_segmentation_prediction_network(architecture: str, image_size: int,
                                         num_classes: int = 91, device="cuda",
                                         **kw) -> nn.Module:
     """SAMLite ("sam", light encoder; "sam_vit", SAM's ViT encoder with 4
-    mask tokens) for images of `image_size`; `kw` goes to SAMLite. The
-    detection model ("maskrcnn") is not ported."""
+    mask tokens) for images of `image_size`, or MaskRCNNLite ("maskrcnn",
+    `num_classes` classes; it takes any image size); `kw` goes to the
+    module."""
     if architecture == "sam":
         return SAMLite(image_size, device=device, **kw)
     if architecture == "sam_vit":
         return SAMLite(image_size, encoder="sam_vit", num_mask_tokens=4,
                        device=device, **kw)
     if architecture == "maskrcnn":
-        _not_ported("MaskRCNNLite", 15)
+        return MaskRCNNLite(num_classes=num_classes, device=device, **kw)
     raise ValueError(f"{architecture} is not implemented as a segmentation network")
 
 

@@ -171,13 +171,19 @@ def test_registry_prediction_and_pointcloud_factories():
     ("maskrcnn", "item 15"),
 ])
 def test_registry_names_the_roadmap_item_of_what_is_not_ported(architecture, item):
-    """ViT is ported (item 14); the detection model waits for item 15."""
+    """ViT is ported (item 14) and the detection model (item 15): the
+    registry builds both, and an unknown key still raises."""
     cfg = _cfg("prediction.architecture=vit")
     vit = treg.get_image_prediction_network(cfg.prediction, 10, True, device="cpu",
                                             image_size=32)
     assert type(vit).__name__ == "ViT" and vit(torch.zeros(1, 32, 32, 3)).shape == (1, 10)
-    with pytest.raises(NotImplementedError, match=item):
-        treg.get_segmentation_prediction_network(architecture, 64, device="cpu")
+    det = treg.get_segmentation_prediction_network(architecture, 64, num_classes=3,
+                                                   device="cpu", channels=16)
+    assert type(det).__name__ == "MaskRCNNLite" and det.num_classes == 3
+    with torch.no_grad():
+        assert det(torch.zeros(1, 64, 64, 3))["pred_masks"].shape == (1, 8, 64, 64)
+    with pytest.raises(ValueError, match="not implemented"):
+        treg.get_segmentation_prediction_network("unet", 64, device="cpu")
 
 
 @pytest.mark.parametrize("network_type,cls", [

@@ -5,11 +5,12 @@ widths (synthetic 16 px, ResNet-18, 1-layer 4-channel GCNN): train, then
 test with the config restored from the checkpoint (vanilla and group
 inference); dryrun; crash-resume; the canonized-image grid; auto_tune;
 the profile trace; the optimized D8 canonicalizer (BASELINE config 2's
-yaml, cut to size) on STL-10 binaries the test writes; the refusals of
-what is not ported. `classification_serve`: fresh weights, a checkpoint
-of the training CLI (every served tensor restored), and the refused
-`--export`. The CLIs do not fall
-back to the CPU.
+yaml, cut to size) on STL-10 binaries the test writes; pretrained
+torchvision weights from a `.pth` the test writes (and the error without
+a path); the refusals of what is not ported. `classification_serve`:
+fresh weights, a checkpoint of the training CLI (every served tensor
+restored), and `--export`, whose artifact loads and answers as the served
+pipeline. The CLIs do not fall back to the CPU.
 """
 
 import json
@@ -160,13 +161,65 @@ def test_optimized_d8_on_stl10_binaries(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("prediction.pretrained=true", "item 15"),
     ("experiment.num_devices=2", "item 16"),
     ("experiment.num_nodes=2", "item 16"),
 ])
 def test_what_is_not_ported_is_refused(override, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(TINY + [override], device="cpu")
+
+
+@pytest.fixture(scope="module")
+def resnet50_pth(tmp_path_factory):
+    """A random torchvision-layout ResNet-50 state dict in a `.pth` file."""
+    from equiadapt_tpu_torch.cli.maskrcnn_lite_experiment import random_resnet50_state_dict
+
+    sd = random_resnet50_state_dict(seed=11)
+    path = tmp_path_factory.mktemp("pretrained") / "resnet50.pth"
+    torch.save(sd, path)
+    return path, sd
+
+
+PRETRAINED = ["prediction.architecture=resnet50", "prediction.pretrained=true",
+              "experiment.run_mode=dryrun"]
+
+
+def test_train_loads_pretrained_weights(resnet50_pth, monkeypatch, capsys):
+    """`prediction.pretrained=true` fills the prediction network from the
+    file before the first step (the 1000-class head and the CIFAR stem kept
+    fresh, as the reference's surgeries); with `freeze_encoder` the step
+    leaves its weights as loaded."""
+    path, sd = resnet50_pth
+    loaded = []
+    build = train.build_state
+
+    def spy(*args, **kw):
+        state = build(*args, **kw)
+        loaded.append({k: v.clone() for k, v in
+                       state.model.prediction_network.state_dict().items()})
+        return state
+
+    monkeypatch.setattr(train, "build_state", spy)
+    args = TINY + PRETRAINED + [f"prediction.pretrained_path={path}"]
+    state = train.main(args, device="cpu")
+    assert f"loaded pretrained resnet50 weights from {path}" in capsys.readouterr().out
+    before = loaded[0]
+    assert torch.equal(before["Bottleneck_0.Conv_0.weight"], sd["layer1.0.conv1.weight"])
+    assert torch.equal(before["Bottleneck_15.BatchNorm_2.running_var"],
+                       sd["layer4.2.bn3.running_var"])
+    assert before["Dense_0.weight"].shape == (4, 2048)  # the fresh 4-class head
+    frozen = train.main(args + ["prediction.freeze_encoder=true"], device="cpu")
+    after = frozen.model.prediction_network.state_dict()
+    for key, src in (("Bottleneck_3.Conv_1.weight", "layer2.0.conv2.weight"),
+                     ("Bottleneck_7.Conv_3.weight", "layer3.0.downsample.0.weight")):
+        assert torch.equal(after[key], sd[src]), key
+    moved = state.model.prediction_network.state_dict()["Bottleneck_3.Conv_1.weight"]
+    assert not torch.equal(moved, sd["layer2.0.conv2.weight"])  # trained unfrozen
+
+
+def test_pretrained_without_a_path_is_an_error():
+    with pytest.raises(ValueError, match="pretrained_path"):
+        train.main(TINY + PRETRAINED, device="cpu")
 
 
 def test_serve_fresh_weights_and_a_checkpoint(trained, tmp_path, capsys):
@@ -182,8 +235,17 @@ def test_serve_fresh_weights_and_a_checkpoint(trained, tmp_path, capsys):
     assert all(torch.equal(served[k], ref[k]) for k in ref)
     serve.main(TINY + [f"checkpoint.checkpoint_path={tmp_path}/none"], device="cpu")
     assert "no checkpoint found; serving fresh weights" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 15"):
-        serve.main(TINY + [f"--export={tmp_path}/model.bin"], device="cpu")
+    # --export writes the served forward as a torch.export artifact
+    from equiadapt_tpu_torch.utils.export import load_exported
+
+    out = serve.main(TINY + [f"--export={tmp_path}/model.pt2"], device="cpu")
+    blob = (tmp_path / "model.pt2").read_bytes()
+    assert out["export_bytes"] == len(blob)
+    assert f"exported torch.export artifact: {tmp_path}/model.pt2" in capsys.readouterr().out
+    x = torch.randn(8, 16, 16, 3)
+    with torch.no_grad():
+        ref = out["pipeline"](x, training=False)[0]
+    assert torch.equal(load_exported(blob)(x), ref)
 
 
 def test_serving_pipeline_is_fast_and_bf16():

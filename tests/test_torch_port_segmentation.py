@@ -509,8 +509,8 @@ def test_registry_vit_and_segmentation_keys_build_the_jax_trees():
             jax.tree_util.tree_leaves(variables)), arch
     assert tm.SamVitEncoder_0.pos_embed.shape == (1, 64, 64, 768)
     assert tm.MaskDecoderLite_0.num_mask_tokens == 4
-    with pytest.raises(NotImplementedError, match="item 15"):
-        treg.get_segmentation_prediction_network("maskrcnn", 64, device="cpu")
+    assert type(treg.get_segmentation_prediction_network(
+        "maskrcnn", 64, device="cpu", channels=16)).__name__ == "MaskRCNNLite"
     with pytest.raises(ValueError):
         treg.get_segmentation_prediction_network("unet", 64, device="cpu")
 
