@@ -306,13 +306,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
    its first sample against the CPU, the AdamW step at batch 4, ms and
    peak memory of each, one step at 256 px, batch 2 against the CPU (bars
    three times the CPU's own spread where larger), and the experiment
-   (`cli.maskrcnn_lite_experiment`) for 5 steps.
+   (`cli.maskrcnn_lite_experiment`) for 5 steps;
+23. `parallel/` (item 16): torch.cuda.device_count() ranks over NCCL
+   (`parallel.launch.spawn`, one GPU a rank, a deadline; each rank loads
+   the kernels phase 2 built), at full width: (a) the trainer of phase 11
+   in bf16-fast data-parallel (global batch 128 x world; the global
+   batch's BatchNorm statistics), the loss falling, step ms in turns with
+   the plain step on the rank's batch, peak memory, at world 1 one step
+   against the plain step (every updated tensor within 1e-6 of its
+   largest value, deterministic algorithms on), the sharded validation
+   step (K3); (b) BASELINE config 1's CLI with
+   experiment.num_devices=world in the process group, train then test from
+   the checkpoint rank 0 wrote (K1a); (c) the trainer under FSDP2 (step
+   ms, the rank's bytes of parameters and moments); (d) the group sweep
+   on the (data, group) grid, 64 images at 224 px, C4, ResNet-50 (metrics
+   equal to the unsharded sweep's; K4 and K1a), and one optimized D4 step
+   at config 2's shape with `orbit_sharding` (K4; the loss within 1e-4 of
+   the unsharded step's); (e) ViT-B/16 tensor-parallel on the (data,
+   model) grid, eval at batch 64 (logits within 1e-4 of the largest) and
+   one AdamW step; (f) its trunk pipelined over the world, M = 4 x world
+   (logits within 1e-4); (g) the sharded export of serving_bf16.yaml at
+   256 x 224 px (outputs within phase 22's bar; K3). Grids 2 x 2 at world
+   4, 1 x 1 at world 1. Each run counted on its own, its first K1 / K3 /
+   K4 launches checked again at the rank's shapes against the plain
+   versions; the rows join the `kernels` line's `cli_checks`.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
-n-body, classification-CLI, MFU, point-cloud-training, segmentation and
-item-15 JSON lines, the
-nvidia-smi line and the `kernels` JSON line.
+n-body, classification-CLI, MFU, point-cloud-training, segmentation,
+item-15 and `parallel` JSON lines, the nvidia-smi line and the `kernels`
+JSON line.
 """
 
 from __future__ import annotations
@@ -4675,6 +4698,495 @@ def item15_phase(tp, sw, orb, kn, src_log, mods):
     return out
 
 
+# phase 23, parallel/: the ranks' deadline; the DP trainer's batch per rank
+# (global PAR_B x world) and its steps (the loss over PAR_STEPS, then
+# windows of PAR_TIMED steps); ViT-B/16 (the registry's "vit") at
+# PAR_VIT_IMAGE px, batch PAR_VIT_B for eval, the step and the pipeline;
+# the bars: the world-1 DP step's updates within PAR_STEP_BAR of each
+# tensor's largest value, the ViT logits within PAR_LOGIT_BAR of the
+# largest (fp32, TF32 off), the orbit-sharded step's loss within
+# PAR_LOSS_BAR
+PAR_TIMEOUT, PAR_B, PAR_STEPS, PAR_TIMED = 900, 128, 8, 8
+PAR_VIT_B, PAR_VIT_IMAGE, PAR_SEED = 64, 224, 101
+PAR_STEP_BAR, PAR_LOGIT_BAR, PAR_LOSS_BAR = 1e-6, 1e-4, 1e-4
+# the constants a rank takes from its parent (a rehearsal changes them)
+PAR_GLOBALS = ("DEVICE", "IMAGE", "GI_B", "GI_CLASSES", "OPT_B", "OPT_IMAGE", "EXPORT_B",
+               "EXPORT_IMAGE", "EXPORT_SEED", "CIFAR_PER_FILE", "PAR_B", "PAR_STEPS",
+               "PAR_TIMED", "PAR_VIT_B", "PAR_VIT_IMAGE", "PAR_SEED", "PAR_STEP_BAR",
+               "PAR_LOGIT_BAR", "PAR_LOSS_BAR", "PAR_VIT_KW")
+PAR_VIT_KW = {}  # ViT-B/16's defaults
+
+
+def rank_ms(fn, reps):
+    """ms per call of fn() over `reps` calls by CUDA events, after one."""
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def grid(world):
+    """(n_data, n_inner) of the 2-D meshes: 2 x 2 at world 4, 1 x 1 at 1."""
+    n_data = 2 if world >= 4 and world % 2 == 0 else 1
+    return n_data, world // n_data
+
+
+def par_trainer_state(tp):
+    """The main-path trainer (bf16-fast, `build_trainer`) with AdamW."""
+    pipe = build_trainer(tp, "bf16_fast")
+    opt = torch.optim.AdamW(pipe.parameters(), lr=1e-3, weight_decay=1e-4)
+    return tp.create_train_state(pipe, ([opt], []))
+
+
+def par_batch(gen, b, size=None, classes=10):
+    x = smooth_images(gen, b, size).contiguous().to(DEVICE)
+    return {"image": x, "label": torch.randint(0, classes, (b,), generator=gen).to(DEVICE)}
+
+
+def state_bytes(state):
+    """This rank's bytes of parameters and of optimizer moments."""
+    from torch.distributed.tensor import DTensor
+
+    local = lambda t: t.to_local() if isinstance(t, DTensor) else t
+    params = sum(local(p).numel() * p.element_size() for p in state.model.parameters())
+    moments = sum(local(v).numel() * v.element_size() for opt in state.optimizers
+                  for st in opt.state.values() for v in st.values()
+                  if torch.is_tensor(v) and v.dim() > 0)
+    return params, moments
+
+
+def par_dp_parity(tp, par, mesh, batch):
+    """World 1: one DP step against the plain `make_train_step` from the
+    same weights, batch and generator seed, deterministic algorithms on:
+    max |delta| of each updated tensor over its largest value (and the plain
+    step against itself, the floor)."""
+    loss_kw = {"prior_weight": 100.0}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = []
+        for kind in ("plain", "plain", "dp"):
+            st = par_trainer_state(tp)
+            step = tp.make_train_step(loss_kw)
+            if kind == "dp":
+                step = par.data_parallel_jit(step, mesh, num_extra_args=1)
+            _, m = step(st, batch, torch.Generator(device=DEVICE).manual_seed(9))
+            runs.append((m["loss/total"].item(),
+                         {k: v.detach().float().clone() for k, v in st.model.state_dict().items()}))
+            del st
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+    def worst(a, b):
+        return max((a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-30)
+                   for k in b if not k.endswith("num_batches_tracked"))
+
+    out = {"plain_vs_plain": worst(runs[1][1], runs[0][1]),
+           "dp_vs_plain": worst(runs[2][1], runs[0][1]),
+           "loss_plain": runs[0][0], "loss_dp": runs[2][0], "bar": PAR_STEP_BAR}
+    log(f"parallel DP parity at world 1: {json.dumps(out)}")
+    assert out["dp_vs_plain"] <= PAR_STEP_BAR, out
+    return out
+
+
+def alone_shard(rows):
+    """A batch shard of this rank alone (a process group of one rank):
+    its batch is whole, its BatchNorm takes the plain path."""
+    import torch.distributed as dist
+
+    from equiadapt_tpu_torch.common.layers import BatchShard
+
+    groups = [dist.new_group([r]) for r in range(dist.get_world_size())]
+    return BatchShard(torch.arange(rows), rows, groups[dist.get_rank()])
+
+
+def par_dp(tp, par, sw, orb, src_log, world):
+    """(a) The main-path trainer data-parallel: the loss falling, step ms
+    in turns with the plain step on the per-rank batch, peak memory, the
+    world-1 parity, the sharded validation step (K3)."""
+    mesh = par.make_mesh()
+    loss_kw = {"prior_weight": 100.0}
+    batch = par_batch(torch.Generator().manual_seed(PAR_SEED), PAR_B * world)
+    out = {"global_batch": PAR_B * world}
+    if world == 1:
+        out["parity"] = par_dp_parity(tp, par, mesh, batch)
+    st = par_trainer_state(tp)
+    par.replicate(st, mesh)
+    step = par.data_parallel_jit(tp.make_train_step(loss_kw), mesh, num_extra_args=1)
+    draws = torch.Generator(device=DEVICE).manual_seed(9)
+    out["losses"] = losses = [step(st, batch, draws)[1]["loss/total"].item()
+                              for _ in range(PAR_STEPS)]
+    assert all(math.isfinite(v) for v in losses) and sum(losses[-3:]) < sum(losses[:3]), losses
+    plain_st, step_alone = par_trainer_state(tp), tp.make_train_step(loss_kw)
+    local = par.shard_batch(batch, mesh)
+    alone = alone_shard(local["image"].shape[0])
+
+    def plain(*args):  # this rank's slice as a whole batch
+        with batch_shard(alone):
+            return step_alone(*args)
+
+    times = {"plain": [], "dp": []}
+    for kind in ("plain", "dp", "dp", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        if kind == "dp":
+            ms = rank_ms(lambda: step(st, batch, draws), PAR_TIMED)
+            out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        else:
+            ms = rank_ms(lambda: plain(plain_st, local, draws), PAR_TIMED)
+        times[kind].append(ms)
+    del plain_st
+    out.update(step_ms=times["dp"], plain_step_ms=times["plain"],
+               img_per_s=PAR_B * world / min(times["dp"]) * 1e3)
+    evaluate = par.data_parallel_jit(tp.make_eval_step(loss_kw), mesh)
+    vm, counts = counted((sw, orb), src_log, "parallel_dp_validation",
+                         lambda: evaluate(st.model, batch))
+    assert counts["launches"].get("select_planes_nhwc/bfloat16", 0) >= 1, counts
+    assert all(math.isfinite(v.item()) for v in vm.values()), vm
+    out["validation"] = {k: v.item() for k, v in vm.items()}
+    out["first_loss"] = losses[0]
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def par_fsdp(tp, par, world):
+    """(c) The same trainer under `shard_state_fsdp`: step ms, this rank's
+    bytes of parameters and moments against the replicated state's, the
+    first step's loss (a's is the same step)."""
+    mesh = par.make_mesh()
+    loss_kw = {"prior_weight": 100.0}
+    batch = par_batch(torch.Generator().manual_seed(PAR_SEED), PAR_B * world)
+    st = par_trainer_state(tp)
+    step = par.data_parallel_jit(tp.make_train_step(loss_kw), mesh, num_extra_args=1)
+    draws = torch.Generator(device=DEVICE).manual_seed(9)
+    step(st, batch, torch.Generator(device=DEVICE).manual_seed(9))  # the moments
+    full = state_bytes(st)
+    st = par_trainer_state(tp)
+    par.shard_state_fsdp(st, mesh)
+    first = step(st, batch, draws)[1]["loss/total"].item()
+    sharded = state_bytes(st)
+    torch.cuda.reset_peak_memory_stats()
+    ms = [rank_ms(lambda: step(st, batch, draws), PAR_TIMED) for _ in range(2)]
+    out = {"step_ms": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "first_loss": first, "param_bytes": sharded[0], "moment_bytes": sharded[1],
+           "replicated_param_bytes": full[0], "replicated_moment_bytes": full[1],
+           "sharded_params": sum(1 for p in st.model.parameters()
+                                 if type(p).__name__ == "DTensor")}
+    assert out["sharded_params"] > 0, out
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_cli(par, sw, orb, src_log, world, cfg):
+    """(b) BASELINE config 1's CLI with experiment.num_devices=world in the
+    process group (its data-parallel path), train then test from the
+    checkpoint rank 0 wrote; K1a in the test run."""
+    from equiadapt_tpu_torch.cli import classification_train as cli
+
+    args = [f"config={cfg['cfg_dir']}/default.yaml", f"dataset.data_path={cfg['data']}",
+            "experiment.num_epochs=1", f"experiment.num_devices={world}",
+            f"checkpoint.checkpoint_path={cfg['ck']}"]
+    t0 = time.perf_counter()
+    _, train = counted((sw, orb), src_log, "parallel_cli_config1",
+                       lambda: cli.main(args, device=DEVICE))
+    train_s = time.perf_counter() - t0
+    metrics, test = counted((sw, orb), src_log, "parallel_cli_config1_test", lambda: cli.main(
+        ["experiment.run_mode=test", f"checkpoint.checkpoint_path={cfg['ck']}"], device=DEVICE))
+    assert test["select_sources"].get("select_planes/float32,1 source", 0) >= 1, test
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    torch.cuda.empty_cache()
+    return {"train_s": train_s, "test": metrics, "train_counts": train, "test_counts": test}
+
+
+def par_gp(tp, par, sw, orb, src_log, world):
+    """(d) `group_sharded_inference` at group inference's shape (C4 at
+    IMAGE px, ResNet-50) on the (data, group) grid: metrics equal to the
+    unsharded sweep's on the same model and batch; K4 and K1a launch."""
+    mesh = par.make_mesh_group(*grid(world))
+    torch.manual_seed(1)
+    gi = build_group_inference(tp, tp.ResNet50(num_classes=GI_CLASSES, device=DEVICE).eval())
+    batch = par_batch(torch.Generator().manual_seed(5), GI_B, classes=GI_CLASSES)
+    sweep = lambda: par.group_sharded_inference(gi, batch, mesh, num_rotations=4)
+    got, counts = counted((sw, orb), src_log, "parallel_gp", sweep)
+    ref = tp.group_inference(gi, batch, num_rotations=4)
+    out = {"metrics": {k: v.item() for k, v in got.items()},
+           "equal": all(got[k].item() == ref[k].item() for k in ref) and set(got) == set(ref),
+           "ms": rank_ms(sweep, 3),
+           "unsharded_ms": rank_ms(lambda: tp.group_inference(gi, batch, num_rotations=4), 3)}
+    assert out["equal"], (out, {k: v.item() for k, v in ref.items()})
+    assert counts["launches"].get("rot90_flip_orbit/float32", 0) >= 1, counts
+    assert counts["select_sources"].get("select_planes/float32,1 source", 0) >= 1, counts
+    del gi
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def par_opt_d4(tp, par, orb, src_log, world, cfg):
+    """(d) One optimized D4 train step at config 2's shape with
+    orbit_sharding on the (data, group) grid (learned reference vector,
+    artifact dummies 0.1, ConvNetwork dropout 0.5): K4 launches, the loss
+    within PAR_LOSS_BAR of the unsharded step's on the same weights, batch
+    and generator seed."""
+    from equiadapt_tpu_torch.cli import classification_train as cli
+
+    c = opt_d4_config(cli, config2_args(cfg["cfg_dir"]) + [f"dataset.image_size={OPT_IMAGE}"])
+    kw = cli.loss_kwargs(c)
+    mesh = par.make_mesh_group(*grid(world))
+    batch = {"image": lowfreq_images(torch.Generator().manual_seed(6), b=OPT_B,
+                                     size=OPT_IMAGE).to(DEVICE),
+             "label": torch.randint(0, 10, (OPT_B,),
+                                    generator=torch.Generator().manual_seed(7)).to(DEVICE)}
+    sharded = cli.build_state(c, DEVICE)
+    sharded.model.canonicalizer.orbit_sharding = ("group", "data")
+    step = par.data_parallel_jit(tp.make_train_step(kw), mesh, num_extra_args=1)
+    (_, m), counts = counted((orb,), src_log, "parallel_opt_d4", lambda: step(
+        sharded, batch, torch.Generator(device=DEVICE).manual_seed(22)))
+    del sharded
+    plain = cli.build_state(c, DEVICE)
+    with batch_shard(alone_shard(OPT_B)):  # the whole batch on this rank
+        _, ref = tp.make_train_step(kw)(plain, batch,
+                                        torch.Generator(device=DEVICE).manual_seed(22))
+    out = {"loss": m["loss/total"].item(), "unsharded_loss": ref["loss/total"].item()}
+    out["loss_rel"] = abs(out["loss"] - out["unsharded_loss"]) / abs(out["unsharded_loss"])
+    assert counts["launches"].get("rot90_flip_orbit/float32", 0) >= 1, counts
+    assert out["loss_rel"] <= PAR_LOSS_BAR, out
+    del plain
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def par_vit(tp):
+    torch.manual_seed(PAR_SEED)
+    return tp.ViT(num_classes=10, image_size=PAR_VIT_IMAGE, device=DEVICE, **PAR_VIT_KW)
+
+
+def par_tp(tp, par, world):
+    """(e) ViT-B/16 tensor-parallel on the (data, model) grid: eval logits
+    against the unsharded model's, then one AdamW step of each (the
+    tensor-parallel one data-parallel over the data axis): the losses, and
+    the updated models' logits."""
+    import copy
+
+    mesh = par.make_mesh_2d(*grid(world))
+    x = torch.randn(PAR_VIT_B, PAR_VIT_IMAGE, PAR_VIT_IMAGE, 3,
+                    generator=torch.Generator().manual_seed(PAR_SEED)).to(DEVICE)
+    labels = torch.randint(0, 10, (PAR_VIT_B,),
+                           generator=torch.Generator().manual_seed(PAR_SEED)).to(DEVICE)
+    ref_vit = par_vit(tp)
+    vit = par.shard_params_tp(copy.deepcopy(ref_vit), mesh)
+    out = {"grid": list(grid(world)), "heads_per_rank":
+           vit.EncoderBlock_0.MultiHeadDotProductAttention_0.num_heads}
+    with torch.no_grad():
+        ref, got = ref_vit(x), vit(x)
+        out["eval_rel"] = (got - ref).abs().max().item() / ref.abs().max().item()
+        out["eval_ms"] = rank_ms(lambda: vit(x), 3)
+        out["plain_eval_ms"] = rank_ms(lambda: ref_vit(x), 3)
+    assert out["eval_rel"] <= PAR_LOGIT_BAR, out
+    loss_kw = {"prior_weight": 0.0}
+    batch = {"image": x, "label": labels}
+    states = []
+    for sharded in (False, True):
+        pipe = tp.ImageClassifierPipeline(tp.IdentityCanonicalization(), copy.deepcopy(ref_vit))
+        st = tp.create_train_state(pipe, ([torch.optim.AdamW(pipe.parameters(), lr=1e-3,
+                                                             weight_decay=1e-4)], []))
+        step = tp.make_train_step(loss_kw)
+        if sharded:
+            par.shard_state_tp(st, mesh)
+            step = par.data_parallel_jit(step, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        _, m = step(st, batch, None)
+        with torch.no_grad():
+            logits = pipe.prediction_network(x)
+        states.append((m["loss/total"].item(), logits, torch.cuda.max_memory_allocated()))
+        if sharded:
+            out["step_ms"] = rank_ms(lambda: step(st, batch, None), 3)
+        else:
+            out["plain_step_ms"] = rank_ms(lambda: step(st, batch, None), 3)
+        del st, pipe
+    (l0, g0, _), (l1, g1, mem) = states
+    out.update(loss=l1, plain_loss=l0, loss_rel=abs(l1 - l0) / abs(l0),
+               step_logit_rel=(g1 - g0).abs().max().item() / g0.abs().max().item(),
+               step_peak_mem_gib=mem / 2**30)
+    assert out["loss_rel"] <= PAR_LOGIT_BAR, out
+    del vit
+    torch.cuda.empty_cache()
+    return out, ref_vit, x
+
+
+def par_pp(par, world, vit, x):
+    """(f) ViT-B/16's trunk over S = world stages, M = 4 S microbatches:
+    logits against the plain forward."""
+    mesh = par.make_mesh_stage(world)
+    M = 4 * world
+    with torch.no_grad():
+        ref = vit(x)
+        run = lambda: par.vit_pipeline_apply(vit, None, x, mesh, num_microbatches=M)
+        got = run()
+        out = {"stages": world, "microbatches": M,
+               "rel": (got - ref).abs().max().item() / ref.abs().max().item(),
+               "ms": rank_ms(run, 3), "plain_ms": rank_ms(lambda: vit(x), 3)}
+    assert out["rel"] <= PAR_LOGIT_BAR, out
+    return out
+
+
+def par_export(tp, par, sw, orb, src_log, cfg):
+    """(g) `export_sharded_apply` of serving_bf16.yaml at EXPORT_B x
+    EXPORT_IMAGE px (the global batch): the loaded artifact's outputs
+    against the live call's (phase 22's bar), K3 launched."""
+    from equiadapt_tpu_torch.cli import classification_serve as serve
+    from equiadapt_tpu_torch.utils.config import compose_config
+    from equiadapt_tpu_torch.utils.export import export_sharded_apply, load_exported
+
+    c = compose_config([f"config={cfg['cfg_dir']}/serving_bf16.yaml",
+                        f"dataset.image_size={EXPORT_IMAGE}",
+                        f"experiment.batch_size={EXPORT_B}"], config_dir=serve.CONFIG_DIR)
+    torch.manual_seed(EXPORT_SEED)
+    pipe = serve.build_serving_pipeline(c, DEVICE).eval()
+    x = tp.synthetic_image_batch(torch.Generator(device=DEVICE).manual_seed(EXPORT_SEED),
+                                 EXPORT_B, size=EXPORT_IMAGE)["image"]
+    fwd = lambda p, b: p(b, training=False)[0]
+    t0 = time.perf_counter()
+    blob = export_sharded_apply(fwd, pipe, x, par.make_mesh())
+    export_s = time.perf_counter() - t0
+    fn = load_exported(blob)
+    got, counts = counted((sw, orb), src_log, "parallel_export", lambda: fn(x))
+    with torch.no_grad():
+        live, again = fwd(pipe, x), fwd(pipe, x)
+    top = live.float().abs().max().item()
+    bar = max((again.float() - live.float()).abs().max().item(),
+              2.0 ** (math.floor(math.log2(top)) - 7))
+    out = {"max_abs_err": (got.float() - live.float()).abs().max().item(), "bar": bar,
+           "export_s": export_s, "bytes": len(blob), "ms": rank_ms(lambda: fn(x), 5),
+           "live_ms": rank_ms(lambda: fwd(pipe, x), 5)}
+    assert got.shape == live.shape and out["max_abs_err"] <= bar, out
+    assert counts["launches"].get("select_planes_nhwc/bfloat16", 0) >= 1, counts
+    del pipe, fn
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def parallel_rank(rank, world, cfg):
+    """Phase 23 on one rank (see `parallel_phase`)."""
+    global batch_shard
+    from equiadapt_tpu_torch.common.layers import batch_shard
+
+    for name, value in cfg["globals"].items():
+        globals()[name] = value
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # deterministic GEMMs
+    import torch.distributed as dist
+
+    import equiadapt_tpu_torch as tp
+    from equiadapt_tpu_torch import parallel as par
+    from equiadapt_tpu_torch.ops.kernels import orbit as orb
+    from equiadapt_tpu_torch.ops.kernels import select_warp as sw
+
+    from equiadapt_tpu_torch.parallel import launch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    dist.barrier()
+    sync()
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "torch": torch.__version__, "nccl_init_s": launch.init_seconds,
+           "first_barrier_s": time.perf_counter() - t0}
+    src_log = SourceLog(sw, orb)
+    runs = {}
+
+    def regime(fn, *args):
+        """fn(*args) with this rank's peak memory over it recorded."""
+        torch.cuda.reset_peak_memory_stats()
+        got = fn(*args)
+        row = got[0] if isinstance(got, tuple) else got
+        row["regime_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return got
+
+    out["dp"], runs["dp_validation"] = regime(par_dp, tp, par, sw, orb, src_log, world)
+    out["fsdp"] = regime(par_fsdp, tp, par, world)
+    out["fsdp"]["loss_vs_dp"] = abs(out["fsdp"]["first_loss"] - out["dp"]["first_loss"])
+    out["cli"] = regime(par_cli, par, sw, orb, src_log, world, cfg)
+    runs["cli_train"], runs["cli_test"] = out["cli"].pop("train_counts"), out["cli"].pop(
+        "test_counts")
+    out["gp"], runs["gp"] = regime(par_gp, tp, par, sw, orb, src_log, world)
+    out["opt_d4"], runs["opt_d4"] = regime(par_opt_d4, tp, par, orb, src_log,
+                                           world, cfg)
+    out["tp"], vit, x = regime(par_tp, tp, par, world)
+    out["pp"] = regime(par_pp, par, world, vit, x)
+    del vit, x
+    out["export"], runs["export"] = regime(par_export, tp, par, sw, orb, src_log, cfg)
+    out["runs"] = runs
+    log(f"parallel rank {rank}: {json.dumps({k: v for k, v in out.items() if k != 'runs'})}")
+    return out
+
+
+def parallel_phase():
+    """Phase 23: `parallel/` on the card. world = torch.cuda.device_count()
+    ranks over NCCL (`parallel.launch.spawn`, one GPU a rank, under a
+    deadline), each loading the kernels phase 2 built: (a) the main-path
+    trainer (bf16-fast, C8 GCNN 3 -> 8, ResNet-50, 224 px, global batch
+    PAR_B x world, AdamW, prior 100) data-parallel with the global batch's
+    BatchNorm statistics, its loss falling, step ms in turns with the plain
+    step, peak memory, at world 1 one step against the plain step (updates
+    within PAR_STEP_BAR of each tensor's largest value), the sharded
+    validation step (K3); (b) BASELINE config 1's CLI with
+    experiment.num_devices=world, train then test (K1a); (c) the trainer
+    under FSDP; (d) the group sweep on the (data, group) grid (metrics
+    equal to the unsharded sweep's; K4, K1a) and the optimized D4 step with
+    orbit_sharding (K4; the loss against the unsharded step); (e) ViT-B/16
+    tensor-parallel, eval and one AdamW step; (f) its trunk pipelined over
+    the world; (g) the sharded export of serving_bf16.yaml (K3). Each run
+    counted on its own, its first K1 / K3 / K4 launches checked again at
+    the rank's shapes against the plain versions (`counted`). Returns every
+    rank's results and the `parallel` line."""
+    import tempfile
+
+    from equiadapt_tpu_torch.parallel import spawn
+
+    world = torch.cuda.device_count()
+    cfg_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLS_CONFIGS)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_cifar10(tmp, torch.Generator().manual_seed(20))
+        cfg = {"globals": {k: globals()[k] for k in PAR_GLOBALS}, "cfg_dir": cfg_dir,
+               "data": tmp, "ck": os.path.join(tmp, "ck_parallel")}
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn(parallel_rank, world, "nccl", args=(cfg,), timeout=PAR_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    line = {"world": world, "backend": r0["backend"], "torch": r0["torch"],
+            "nccl_init_s": max(r["nccl_init_s"] for r in ranks),
+            "first_barrier_s": max(r["first_barrier_s"] for r in ranks), "phase_s": spawn_s,
+            "regimes": {
+                "dp": {k: r0["dp"][k] for k in ("global_batch", "step_ms", "plain_step_ms",
+                                                "img_per_s", "peak_mem_gib",
+                                                "regime_peak_mem_gib")},
+                "fsdp": {k: r0["fsdp"][k] for k in ("step_ms", "peak_mem_gib", "param_bytes",
+                                                    "moment_bytes", "replicated_param_bytes",
+                                                    "replicated_moment_bytes", "loss_vs_dp")},
+                "gp": {k: r0["gp"][k] for k in ("ms", "unsharded_ms", "equal",
+                                                "regime_peak_mem_gib")},
+                "opt_d4": r0["opt_d4"],
+                "tp": {k: r0["tp"][k] for k in ("grid", "eval_rel", "eval_ms", "plain_eval_ms",
+                                                "step_ms", "plain_step_ms", "loss_rel",
+                                                "step_logit_rel", "step_peak_mem_gib",
+                                                "regime_peak_mem_gib")},
+                "pp": r0["pp"],
+                "export": {k: r0["export"][k] for k in ("ms", "live_ms", "max_abs_err", "bar",
+                                                        "regime_peak_mem_gib")},
+                "cli": {k: r0["cli"][k] for k in ("train_s", "test", "regime_peak_mem_gib")}},
+            "launches": {run: c["launches"] for run, c in r0["runs"].items()}}
+    if "parity" in r0["dp"]:
+        line["regimes"]["dp"]["parity"] = r0["dp"]["parity"]
+    return {"ranks": ranks, "line": line}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -5028,6 +5540,15 @@ def main() -> int:
                          for k, v in it15["native_loader"]["launches"].items()})
         pc_train_launches.update({f"export_{run}": it15["export"]["launches"][run]
                                   for run in ("pointcloud", "knn")})
+        # parallel/ (phase 23): every rank's runs, each counted on its own
+        times["parallel"] = par_out = parallel_phase()
+        par_runs = {f"parallel_{run}_rank{r['rank']}": c
+                    for r in par_out["ranks"] for run, c in r["runs"].items()}
+        for path, run in par_runs.items():
+            launches.update({f"{path}:{k}": v for k, v in run["launches"].items()})
+            add_paths(run["paths"])
+            orbit_launches[path] = {k: v for k, v in run["launches"].items()
+                                    if k.startswith("rot90_flip_orbit/")}
         for key, row in times["continuous_train"].items():
             launches.update({f"continuous_train_{key}:{k}": v
                              for k, v in row["launches"].items()})
@@ -5067,6 +5588,9 @@ def main() -> int:
             for n in ("select_planes_rolled", "select_planes_nhwc")
             for t in ("float32", "bfloat16")}
         k1_launches.update(src_log.select_launches())
+        for run in par_runs.values():  # the ranks' K1 launches by sources
+            for key, v in run["select_sources"].items():
+                k1_launches[key] = k1_launches.get(key, 0) + v
         for dtype in (torch.float32, torch.bfloat16):
             for kname in TPU_KERNEL:
                 kernels.append(kernel_entry(sw, kname, dtype, gen, bwidth,
@@ -5090,6 +5614,7 @@ def main() -> int:
         cli_checked += [row for run in pc_train["cli"].values() for row in run["checked"]]
         cli_checked += [row for run in ("train", "test") for row in seg["cli"][run]["checked"]]
         cli_checked += pre["train"]["checked"] + pre["test_counts"]["checked"]
+        cli_checked += [row for run in par_runs.values() for row in run["checked"]]
         # K1a and K3 at config 5's shapes (phase 21): the rows of
         # `seg_kernel_rows` and the launches of its eval path
         seg_rows = {"select_planes[float32,1 source]": "select_planes",
@@ -5184,6 +5709,7 @@ def main() -> int:
                                          "train_step_peak_mem_gib", "experiment")},
         "native_loader": {k: nl[k] for k in ("loader_batches_per_s", "loader_img_per_s",
                                              "end_to_end_img_per_s")}}}))
+    log(json.dumps({"parallel": {"device": smi, **times["parallel"]["line"]}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

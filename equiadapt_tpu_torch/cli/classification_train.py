@@ -31,8 +31,23 @@ Random draws come from one `torch.Generator` per stream of a run seeded
 `experiment.seed`. `prediction.pretrained=true` loads the torchvision
 checkpoint at `prediction.pretrained_path` into the prediction network
 through `models.convert` (`prediction.freeze_encoder` then leaves it out of
-the optimizer), as the JAX CLI does. Not ported yet, and refused: more than
-one device or node (`parallel/`, ROADMAP.md item 16).
+the optimizer), as the JAX CLI does.
+
+More than one device or node, as the JAX CLI (`parallel/`): the world is
+min(`experiment.num_devices`, the visible devices: GPUs on the card, CPU
+cores on the CPU), printed. With `num_devices` > 1 and no process group
+or torchrun environment, the CLI starts its local ranks itself
+(`parallel.launch.spawn`: NCCL on the card, gloo on the CPU) and returns
+rank 0's test metrics (None in the training modes: the checkpoint is the
+result). With `experiment.num_nodes` > 1 it runs under torchrun on each
+node and joins the process group (`parallel.init_distributed`), raising
+unless the world holds num_nodes nodes of LOCAL_WORLD_SIZE ranks. In a
+process group every rank builds the state from the seed (checked equal,
+`parallel.replicate`), draws the same global batches and keeps its slice
+(`parallel.data_parallel_jit`: BatchNorm statistics and dropout masks of
+the global batch, gradients averaged, metrics global means), so a world of
+N trains on the batches of one process; rank 0 alone prints, logs and
+writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -42,11 +57,19 @@ import sys
 from typing import Dict, Iterator
 
 import torch
+import torch.distributed as dist
 
 from equiadapt_tpu_torch.cli import generator
 from equiadapt_tpu_torch.data import synthetic_image_batch
 from equiadapt_tpu_torch.data.images import get_image_dataset
 from equiadapt_tpu_torch.models.convert import apply_pretrained_to_state
+from equiadapt_tpu_torch.parallel import (
+    data_parallel_jit,
+    init_distributed,
+    make_mesh,
+    replicate,
+    spawn,
+)
 from equiadapt_tpu_torch.pipelines.classification import (
     ImageClassifierPipeline,
     create_train_state,
@@ -189,32 +212,69 @@ def run_test(cfg: Config, state, device) -> Dict[str, float]:
     return {k: float(v.float().mean()) for k, v in metrics.items()}
 
 
-def main(argv, device="cuda"):
+def visible_devices(device) -> int:
+    """Devices a run of this process can take: GPUs, or CPU cores."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return os.cpu_count() or 1
+
+
+def _rank_main(rank: int, world: int, argv, device, timeout):
+    """One rank of a run the CLI spawned: `main` in the process group;
+    the test metrics (rank 0's are returned), None in the training modes."""
+    out = main(argv, device=device, timeout=timeout)
+    return out if isinstance(out, dict) else None
+
+
+def main(argv, device="cuda", timeout=None):
+    """Run the CLI; `timeout`: the deadline in seconds of ranks it spawns
+    (None: none)."""
     cfg = compose(argv)
-    if cfg.experiment.num_nodes > 1 or cfg.experiment.num_devices > 1:
-        raise NotImplementedError(
-            "training on more than one device or node needs parallel/, not "
-            "ported yet (ROADMAP.md item 16)")
-    seed = cfg.experiment.seed
+    exp = cfg.experiment
+    if exp.num_nodes > 1:
+        per_node = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+        init_distributed(expected_processes=exp.num_nodes * per_node)
+    elif exp.num_devices > 1 and not dist.is_initialized():
+        if "WORLD_SIZE" in os.environ:
+            init_distributed()  # torchrun on one node
+        else:
+            world = min(exp.num_devices, visible_devices(device))
+            print(f"world: {world} ranks (experiment.num_devices={exp.num_devices}, "
+                  f"{visible_devices(device)} visible)")
+            if world > 1:
+                cpu = torch.device(device).type == "cpu"
+                return spawn(_rank_main, world, "gloo" if cpu else "nccl",
+                             args=(argv, device, timeout), timeout=timeout,
+                             threads=max(1, torch.get_num_threads() // world) if cpu else None)[0]
+    dp = dist.is_initialized()
+    lead = not dp or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    seed = exp.seed
     path = cfg.checkpoint.checkpoint_path
     state = build_state(cfg, device)
     kw = loss_kwargs(cfg)
-    step = make_train_step(kw, watch_gradients=cfg.experiment.watch_gradients)
+    step = make_train_step(kw, watch_gradients=exp.watch_gradients)
     eval_step = make_eval_step(kw)
     draws = generator(seed, STEP_STREAM, device)
+    if dp:
+        mesh = make_mesh()
+        say(f"world: {dist.get_world_size()} ranks ({dist.get_backend()})")
+        replicate(state, mesh)
+        step = data_parallel_jit(step, mesh, num_extra_args=1)
+        eval_step = data_parallel_jit(eval_step, mesh)
 
-    if cfg.experiment.run_mode == "test":
+    if exp.run_mode == "test":
         state = restore_checkpoint(path, state, strict=cfg.checkpoint.strict_loading)
         out = run_test(cfg, state, device)
-        print(out)
+        say(out)
         return out
 
     if cfg.experiment.run_mode == "dryrun":
         batch = next(get_batches(cfg, generator(seed, 0, device), 1, device=device))
         state, tm = step(state, batch, draws)
         vm = eval_step(state.model, batch)
-        print(f"dryrun ok: train loss={float(tm['loss/total']):.4f} "
-              f"eval loss={float(vm['loss/total']):.4f}")
+        say(f"dryrun ok: train loss={float(tm['loss/total']):.4f} "
+            f"eval loss={float(vm['loss/total']):.4f}")
         return state
 
     if cfg.experiment.run_mode == "auto_tune":
@@ -225,13 +285,18 @@ def main(argv, device="cuda"):
                                        10, device=device)
                 e += 1
 
-        result = lr_find(build_pipeline(cfg, device),
-                         make_step=lambda s: make_train_step(kw),
-                         batches=batches(), generator=draws)
-        print(f"auto_tune: suggested learning rate {result.suggestion:.3e}")
-        state = build_state(cfg, device, learning_rate=result.suggestion)
+        def make_step(_):
+            tune_step = make_train_step(kw)
+            return data_parallel_jit(tune_step, mesh, num_extra_args=1) if dp else tune_step
 
-    logger = MetricLogger(f"{path}/train_log.jsonl" if path else None)
+        result = lr_find(build_pipeline(cfg, device), make_step=make_step,
+                         batches=batches(), generator=draws)
+        say(f"auto_tune: suggested learning rate {result.suggestion:.3e}")
+        state = build_state(cfg, device, learning_rate=result.suggestion)
+        if dp:
+            replicate(state, mesh)
+
+    logger = MetricLogger(f"{path}/train_log.jsonl" if path and lead else None)
     saver = best_metric_saver(path) if path else None
     stopper = EarlyStopping(patience=10)
     resumer = None
@@ -241,7 +306,7 @@ def main(argv, device="cuda"):
         state, latest = resumer.restore_latest(state)
         if latest is not None:
             start_epoch = latest + 1
-            print(f"resumed from epoch {latest}")
+            say(f"resumed from epoch {latest}")
     if cfg.experiment.profile:
         with profile_trace(cfg.experiment.profile_dir):
             b = next(get_batches(cfg, generator(seed, PROFILE_STREAM, device), 1,
@@ -249,7 +314,7 @@ def main(argv, device="cuda"):
             for _ in range(3):
                 state, m = step(state, b, draws)
             float(m["loss/total"])  # waits for the device
-        print(f"profile trace written to {cfg.experiment.profile_dir}")
+        say(f"profile trace written to {cfg.experiment.profile_dir}")
     try:
         for epoch in range(start_epoch, cfg.experiment.num_epochs):
             for batch in get_batches(cfg, generator(seed, epoch, device),
@@ -260,20 +325,20 @@ def main(argv, device="cuda"):
             val = next(get_batches(cfg, generator(seed, VAL_STREAM + epoch, device),
                                    1, split="test", device=device))
             vm = eval_step(state.model, val)
-            if cfg.checkpoint.save_canonized_images and path:
+            if cfg.checkpoint.save_canonized_images and path and lead:
                 with torch.no_grad():
                     x_c, _ = state.model.canonicalize(val["image"][:8])
                 save_canonized_images(f"{path}/canonized_epoch{epoch}.png",
                                       val["image"][:8], x_c)
             means = logger.flush(epoch, prefix="train/")
             acc = float(vm["metric/acc"])
-            print(f"epoch {epoch}: {means} val/acc={acc:.4f}")
+            say(f"epoch {epoch}: {means} val/acc={acc:.4f}")
             if saver is not None:
                 saver.maybe_save(acc, state, cfg)
             if resumer is not None:
                 resumer.save(epoch, state)  # written in the background
             if stopper.update(acc):
-                print("early stopping")
+                say("early stopping")
                 break
     finally:
         if resumer is not None:

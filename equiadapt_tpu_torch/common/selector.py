@@ -4,7 +4,8 @@ Counterpart of `equiadapt_tpu/common/selector.py`. Ties go to the first
 maximum, as `jnp.argmax` and `torch.argmax` both pick. The Gumbel variant
 takes its noise as a tensor (a test hands the JAX noise across), or draws
 it from the `torch.Generator` given, as the JAX package draws it from its
-"gumbel" rng.
+"gumbel" rng (at the global batch's shape inside a batch shard,
+`common.layers.sharded_draw`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from equiadapt_tpu_torch.common.layers import sharded_draw
 
 Tensor = torch.Tensor
 
@@ -85,7 +88,8 @@ def select_onehot(
                 raise ValueError(
                     "gumbel_softmax needs its noise (gumbels=) or a generator "
                     "during training")
-            gumbels = gumbel_noise(group_activations.shape, generator,
-                                   group_activations.dtype)
+            gumbels = sharded_draw(
+                lambda shape: gumbel_noise(shape, generator, group_activations.dtype),
+                group_activations.shape)
         return gumbel_softmax_onehot(group_activations, gumbels)
     raise ValueError(f"Gradient trick {gradient_trick} not implemented")

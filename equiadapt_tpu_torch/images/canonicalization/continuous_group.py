@@ -52,6 +52,7 @@ from equiadapt_tpu_torch.common.info import (
     ContinuousCanonicalizationInfo,
     ContinuousGroupElement,
 )
+from equiadapt_tpu_torch.common.layers import sharded_draw
 from equiadapt_tpu_torch.common.math import (
     det_2x2,
     gram_schmidt_2d,
@@ -260,11 +261,12 @@ class OptimizedSteerableImageCanonicalization(ContinuousGroupImageCanonicalizati
                 "the optimized steerable canonicalizer draws random "
                 "rotations: pass generator= to canonicalize")
         dev = generator.device
-        angles = torch.rand(B, generator=generator, device=dev) * 2.0 * math.pi
+        angles = sharded_draw(lambda s: torch.rand(s, generator=generator, device=dev),
+                              (B,)) * 2.0 * math.pi
         reflect = None
         if self.group_type == "roto-reflection":
-            reflect = torch.randint(0, 2, (B,), generator=generator,
-                                    device=dev).float() * 2.0 - 1.0
+            reflect = sharded_draw(lambda s: torch.randint(
+                0, 2, s, generator=generator, device=dev), (B,)).float() * 2.0 - 1.0
         return angles, reflect
 
     def group_augment(self, x: Tensor, generator: Optional[torch.Generator]

@@ -30,9 +30,10 @@ With `targets` (boxes (B, N, 4) and masks (B, N, H, W)), `canonicalize`
 returns `(x_canon, targets_canon, info)`: the boxes and masks take the
 selected element too, the masks in eval through K1 (their (B, H, W, N)
 view of NCHW memory), in training through the `rotate_discrete` blend.
-The optimized variant's `orbit_sharding` (a mesh constraint) waits for
-`parallel/` (ROADMAP.md item 16). The JAX package's NCHW-spine
-serving branch is a TPU layout path with no counterpart here.
+The optimized variant's `orbit_sharding` splits its orbit batch over a
+(data, group) mesh of ranks (`parallel.make_mesh_group`). The JAX
+package's NCHW-spine serving branch is a TPU layout path with no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from equiadapt_tpu_torch.common.info import (
     DiscreteCanonicalizationInfo,
     DiscreteGroupElement,
 )
+from equiadapt_tpu_torch.common.layers import all_gather_rows, orbit_shard, sharded_draw
 from equiadapt_tpu_torch.common.selector import select_onehot
 from equiadapt_tpu_torch.ops.boxes import flip_boxes, flip_masks, rotate_boxes
 from equiadapt_tpu_torch.ops.group_action import get_action_on_image_features
@@ -295,8 +297,17 @@ class OptimizedGroupEquivariantImageCanonicalization(
     `generator` that `canonicalize` is given, or handed in as `artifact_idx`
     ((G * B,) integers in [0, num_rotations)).
 
-    `orbit_sharding` (a mesh constraint of the JAX package) waits for
-    `parallel/` (ROADMAP.md item 16): only None is taken.
+    `orbit_sharding` = (group axis, data axis), e.g. ("group", "data"),
+    names the axes of the active mesh (`parallel.mesh.current_mesh`: the
+    mesh of a `parallel.data_parallel_jit` step, whose batch is split over
+    the data axis) to split the (G * B) orbit batch over, as the JAX
+    module's sharding constraint does: the rank at (d, g) runs the network
+    on its share of the G elements (|G| need not divide the group axis;
+    `np.array_split`'s shares) for its data slice, BatchNorm takes the
+    statistics of the whole orbit batch over every rank of the mesh, and
+    the vectors of the other shares are all-gathered over the group axis
+    (differentiable) before the scores. None (the default) runs the whole
+    orbit on each rank.
     """
 
     def __init__(self, canonicalization_network: nn.Module,
@@ -305,11 +316,8 @@ class OptimizedGroupEquivariantImageCanonicalization(
                  orbit_sharding: Optional[Tuple[str, str]] = None,
                  device="cuda", generator: Optional[torch.Generator] = None,
                  **kwargs: Any):
-        if orbit_sharding is not None:
-            raise NotImplementedError(
-                "orbit_sharding is a mesh constraint of parallel/, not ported "
-                "yet (ROADMAP.md item 16)")
         super().__init__(canonicalization_network, in_shape, **kwargs)
+        self.orbit_sharding = None if orbit_sharding is None else tuple(orbit_sharding)
         self.out_vector_size = out_vector_size
         self.learn_ref_vec = learn_ref_vec
         self.artifact_err_wt = artifact_err_wt
@@ -336,28 +344,63 @@ class OptimizedGroupEquivariantImageCanonicalization(
         n = self.num_rotations
         x_aug = self.group_augment(x)  # (G * B, h, w, C)
         net = self.canonicalization_network
-        vector_out = net(x_aug, training, generator)
+        elements, gather = range(G), lambda v: v
+        stats_group = "same"
+        if self.orbit_sharding is not None:
+            elements, gather = self._orbit_share(G, B)
+            mine = slice(elements[0] * B, (elements[-1] + 1) * B) if elements else slice(0, 0)
+            x_aug = x_aug[mine]
+            if artifact_idx is not None:
+                artifact_idx = artifact_idx[mine]
+            stats_group = None  # every rank of the mesh holds orbit rows
+        with orbit_shard(G, elements, stats_group):
+            vector_out = net(x_aug, training, generator)
+            if self.artifact_err_wt:
+                # a random rotation and its inverse isolate the warp artifacts
+                if artifact_idx is None:
+                    if generator is None:
+                        raise ValueError(
+                            "artifact_err_wt > 0 draws random rotations: pass "
+                            "generator= or artifact_idx= to canonicalize")
+                    artifact_idx = sharded_draw(lambda s: torch.randint(
+                        0, n, s, generator=generator, device=generator.device),
+                        (x_aug.shape[0],))
+                oh = F.one_hot(artifact_idx.to(x_aug.device).long(), n).to(x_aug.dtype)
+                x_dummy = rotate_discrete(x_aug, oh, n, -1.0, self.padding_mode)
+                x_dummy = rotate_discrete(x_dummy, oh, n, 1.0, self.padding_mode)
+                dummy = net(x_dummy, training, generator)
+        vector_out = gather(vector_out)
         extras = {"vector_out": vector_out}
         if self.artifact_err_wt:
-            # a random rotation and its inverse isolate the warp artifacts
-            if artifact_idx is None:
-                if generator is None:
-                    raise ValueError(
-                        "artifact_err_wt > 0 draws random rotations: pass "
-                        "generator= or artifact_idx= to canonicalize")
-                artifact_idx = torch.randint(0, n, (x_aug.shape[0],),
-                                             generator=generator,
-                                             device=generator.device)
-            oh = F.one_hot(artifact_idx.to(x_aug.device).long(), n).to(x_aug.dtype)
-            x_dummy = rotate_discrete(x_aug, oh, n, -1.0, self.padding_mode)
-            x_dummy = rotate_discrete(x_dummy, oh, n, 1.0, self.padding_mode)
-            extras["vector_out_dummy"] = net(x_dummy, training, generator)
+            extras["vector_out_dummy"] = gather(dummy)
         ref = self.reference_vector
         vn = vector_out / (
             torch.linalg.vector_norm(vector_out, dim=-1, keepdim=True) + 1e-12)
         rn = ref / (torch.linalg.vector_norm(ref, dim=-1, keepdim=True) + 1e-12)
         scalar = torch.sum(vn * rn, dim=-1)  # (G * B,)
         return scalar.reshape(G, B).T, extras  # (B, G), group-major unflatten
+
+    def _orbit_share(self, G: int, B: int):
+        """(this rank's orbit elements, the gather of every share's rows)
+        on the active mesh's (group, data) axes."""
+        import numpy as np
+
+        from equiadapt_tpu_torch.parallel.mesh import axis_size, current_mesh
+
+        mesh = current_mesh()
+        group_axis, data_axis = self.orbit_sharding
+        names = getattr(mesh, "mesh_dim_names", None) or ()
+        if group_axis not in names or data_axis not in names:
+            raise ValueError(
+                f"orbit_sharding {self.orbit_sharding} needs an active mesh with "
+                f"those axes (parallel.data_parallel_jit on a make_mesh_group "
+                f"mesh); active: {names or None}")
+        shares = [list(map(int, a)) for a in
+                  np.array_split(np.arange(G), axis_size(mesh, group_axis))]
+        mine = shares[mesh.get_local_rank(group_axis)]
+        group = mesh.get_group(group_axis)
+        sizes = [len(e) * B for e in shares]
+        return mine, lambda v: all_gather_rows(v, sizes, group)
 
 
 def optimization_specific_loss(info: DiscreteCanonicalizationInfo, *,

@@ -108,7 +108,7 @@ class EquivariantNetwork(nn.Module):
             add(f"{gconv.__name__}_{i}", gconv(co, co, **common), "conv")
             add(f"FiberBatchNorm_{i + 1}", FiberBatchNorm(co, G, device=device), "bn")
             add(f"Dropout_{i + 1}", Dropout(dropout_rate), "drop")
-        add(f"{gconv.__name__}_{num_layers - 2}", gconv(co, co, **common), "conv")
+        add(f"{gconv.__name__}_{max(num_layers - 2, 0)}", gconv(co, co, **common), "conv")
 
     @property
     def num_group(self) -> int:

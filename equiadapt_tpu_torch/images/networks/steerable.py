@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from equiadapt_tpu_torch.common.layers import global_mean, stats_shard
+
 Tensor = torch.Tensor
 _EPS = 1e-5  # NormBatchNorm's epsilon, as in the Flax module
 
@@ -246,7 +248,9 @@ class NormBatchNorm(nn.Module):
         B, _, H, W = x.shape
         per_field = x.new_zeros(B, len(self.orders), H, W).index_add_(
             1, self._field, x * x)
-        batch = per_field.mean(dim=(0, 2, 3))
+        shard = stats_shard(training, "NormBatchNorm")
+        batch = (per_field.mean(dim=(0, 2, 3)) if shard is None
+                 else global_mean(per_field, (0, 2, 3), shard))
         with torch.no_grad():
             self.norm_sq.mul_(self.momentum).add_(
                 batch.float(), alpha=1.0 - self.momentum)

@@ -221,6 +221,11 @@ class MultiHeadDotProductAttention(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Tensor:
         """Attention of (B, n, features) queries over `kv` (B, m, features),
         or over x itself."""
+        return self.out(self._attend(x, kv, training, generator))
+
+    def _attend(self, x: Tensor, kv: Optional[Tensor], training: bool,
+                generator: Optional[torch.Generator]) -> Tensor:
+        """The heads' outputs before `out`, (B, n, heads * head_dim)."""
         B, n, _ = x.shape
         kv = x if kv is None else kv
         heads = (self.num_heads, self.head_dim)
@@ -234,7 +239,7 @@ class MultiHeadDotProductAttention(nn.Module):
                                    generator=generator)
             w = w * (keep / keep_prob).to(w.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
-        return self.out(o.reshape(B, n, -1))
+        return o.reshape(B, n, -1)
 
 
 class NBodyTransformer(nn.Module):

@@ -94,7 +94,7 @@ class SamAttention(nn.Module):
                  device="cuda"):
         super().__init__()
         self.num_heads = num_heads
-        hd = dim // num_heads
+        self.head_dim = hd = dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd,
@@ -104,14 +104,22 @@ class SamAttention(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         B, H, W, C = x.shape
-        nh = self.num_heads
-        hd = C // nh
+        return self.proj(self._attend(x)).reshape(B, H, W, C)
+
+    def _rel_pos(self) -> Tuple[Tensor, Tensor]:
+        return self.rel_pos_h, self.rel_pos_w
+
+    def _attend(self, x: Tensor) -> Tensor:
+        """The heads' outputs before `proj`, (B, H * W, heads * head_dim)."""
+        B, H, W, C = x.shape
+        nh, hd = self.num_heads, self.head_dim
         qkv = self.qkv(x.reshape(B, H * W, C))
         qkv = qkv.reshape(B, H * W, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, HW, hd)
         attn = (q * hd ** -0.5) @ k.transpose(-2, -1)  # (B, nh, HW, HW)
-        Rh = _rel_pos_table(H, H, self.rel_pos_h)  # (H, H, hd)
-        Rw = _rel_pos_table(W, W, self.rel_pos_w)  # (W, W, hd)
+        rel_h, rel_w = self._rel_pos()
+        Rh = _rel_pos_table(H, H, rel_h)  # (H, H, hd)
+        Rw = _rel_pos_table(W, W, rel_w)  # (W, W, hd)
         r_q = q.reshape(B, nh, H, W, hd)
         bias_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, Rh)
         bias_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, Rw)
@@ -120,8 +128,7 @@ class SamAttention(nn.Module):
         attn = attn.view(B, nh, H, W, H, W)
         attn.add_(bias_h[..., :, None]).add_(bias_w[..., None, :])
         attn = torch.softmax(attn.view(B, nh, H * W, H * W), dim=-1)
-        out = (attn @ v).transpose(1, 2).reshape(B, H * W, C)
-        return self.proj(out).reshape(B, H, W, C)
+        return (attn @ v).transpose(1, 2).reshape(B, H * W, nh * hd)
 
 
 class _Mlp(nn.Module):

@@ -27,8 +27,8 @@ which holds its own weights, and run it under `torch.no_grad()`.
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -154,15 +154,29 @@ def classification_loss(
 class TrainState:
     """The port's train state: the pipeline module (parameters and
     BatchNorm statistics), the optimizers of its parameter groups, the
-    schedulers stepped once per train step, and the step count."""
+    schedulers stepped once per train step, and the step count.
+    `grad_sync(model)`, when set (by `parallel.data_parallel_jit` for its
+    step), reduces the gradients over the ranks after the backward."""
 
     model: nn.Module
     optimizers: Sequence[torch.optim.Optimizer]
     schedulers: Sequence[Any] = ()
     step: int = 0
+    grad_sync: Optional[Callable[[nn.Module], None]] = None
+    _synced: bool = field(default=False, repr=False)
+
+    def sync_gradients(self) -> None:
+        """`grad_sync(model)` once between a backward and the optimizer
+        step (a no-op without one)."""
+        if self.grad_sync is not None and not self._synced:
+            self.grad_sync(self.model)
+            self._synced = True
 
     def apply_gradients(self) -> None:
-        """One optimizer step of every group, then the schedulers."""
+        """One optimizer step of every group (the gradients reduced over
+        the ranks first, `sync_gradients`), then the schedulers."""
+        self.sync_gradients()
+        self._synced = False
         for opt in self.optimizers:
             opt.step()
         for sched in self.schedulers:
@@ -243,7 +257,8 @@ def make_train_step(loss_kwargs: Dict[str, Any], watch_gradients: bool = False):
     masks and Gumbel noise drawn from `generator`), `classification_loss`,
     the backward pass and one optimizer step; the state is updated in
     place and returned. watch_gradients=True adds `grad/<subtree>/norm`
-    for each top-level module and `grad/global_norm`."""
+    for each top-level module and `grad/global_norm` (of the reduced
+    gradients under `parallel.data_parallel_jit`)."""
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    generator: Optional[torch.Generator] = None):
@@ -254,13 +269,17 @@ def make_train_step(loss_kwargs: Dict[str, Any], watch_gradients: bool = False):
         loss, metrics = classification_loss(logits, batch["label"], info,
                                             **loss_kwargs)
         loss.backward()
+        state.sync_gradients()
         if watch_gradients:
             total = torch.zeros((), device=loss.device)
             for name, child in model.named_children():
                 sq = torch.zeros((), device=loss.device)
                 for p in child.parameters():
                     if p.grad is not None:
-                        sq = sq + torch.sum(torch.square(p.grad.float()))
+                        g = p.grad
+                        if hasattr(g, "full_tensor"):  # an FSDP-sharded gradient
+                            g = g.full_tensor()
+                        sq = sq + torch.sum(torch.square(g.float()))
                 metrics[f"grad/{name}/norm"] = torch.sqrt(sq)
                 total = total + sq
             metrics["grad/global_norm"] = torch.sqrt(total)

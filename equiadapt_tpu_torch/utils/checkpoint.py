@@ -7,6 +7,13 @@ config is given, `config.json` in the JAX package's format, so
 `restore_config` reads a config saved by either package. Tensors are loaded
 onto the CPU and copied into the state's own tensors, so a state restores
 on the device it lives on.
+
+A state sharded over ranks (`parallel.shard_state_fsdp`'s DTensors,
+`parallel.shard_state_tp`'s slices) is saved whole: every rank takes part
+in gathering each sharded parameter and moment, and rank 0 alone writes
+(the other ranks wait for it). Restoring reads the whole tensors on every
+rank and keeps each rank's shard, so the restored tensors have the
+template's placements.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from equiadapt_tpu_torch.utils.config import Config
 
@@ -43,9 +52,72 @@ def _write_config(path: str, config: Config) -> None:
         json.dump(config.to_dict(), f, indent=2)
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _tp_gather(t: torch.Tensor, shard) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in shard.indices]
+    dist.all_gather(parts, t.detach().contiguous(), group=shard.group)
+    shape = list(t.shape)
+    shape[shard.dim] = shard.size
+    full = t.new_empty(shape)
+    for idx, part in zip(shard.indices, parts):
+        full.index_copy_(shard.dim, idx.to(t.device), part)
+    return full
+
+
+def _whole(t: Any, param: Any) -> Any:
+    """t (a parameter, or an optimizer state of `param`) as a whole
+    tensor: a DTensor's full tensor, a tensor-parallel slice gathered."""
+    if isinstance(t, DTensor):
+        return t.full_tensor()
+    shard = getattr(param, "tp_shard", None)
+    if shard is not None and torch.is_tensor(t) and t.shape == param.shape:
+        return _tp_gather(t, shard)
+    return t
+
+
+def _shard_of(full: Any, like: Any, param: Any) -> Any:
+    """The inverse of `_whole`: this rank's shard of `full`, laid out
+    as `like` (the state's own tensor) and `param`."""
+    if isinstance(like, DTensor):
+        (dim,) = [p.dim for p in like.placements]
+        mesh = like.device_mesh
+        part = full.chunk(mesh.size(), dim)[mesh.get_local_rank()]
+        return DTensor.from_local(part.to(like.device, like.dtype).clone(), mesh,
+                                  like.placements, run_check=False)
+    shard = getattr(param, "tp_shard", None)
+    if shard is not None and torch.is_tensor(full) and full.dim() == param.dim() \
+            and full.shape[shard.dim] == shard.size != param.shape[shard.dim]:
+        return full.index_select(shard.dim, shard.index)
+    return full
+
+
+def _opt_params(opt) -> List[Any]:
+    """An optimizer's parameters in its state dict's numbering."""
+    return [p for g in opt.param_groups for p in g["params"]]
+
+
 def _snapshot(state: Any) -> Dict[str, Any]:
     """The state as a dict of CPU copies (training may go on changing the
-    state's tensors in place while the snapshot is written)."""
+    state's tensors in place while the snapshot is written); sharded
+    tensors whole (every rank must call it)."""
+    params = dict(state.model.named_parameters())
+    model = {k: _whole(v, params.get(k)) for k, v in state.model.state_dict().items()}
+    optimizers = []
+    for opt in state.optimizers:
+        sd = opt.state_dict()
+        ps = _opt_params(opt)
+        sd["state"] = {i: {k: _whole(v, ps[i]) for k, v in st.items()}
+                       for i, st in sd["state"].items()}
+        optimizers.append(sd)
+
     def cpu(tree):
         if isinstance(tree, torch.Tensor):
             return tree.detach().to("cpu", copy=True)
@@ -56,8 +128,8 @@ def _snapshot(state: Any) -> Dict[str, Any]:
         return tree
 
     return cpu({
-        "model": state.model.state_dict(),
-        "optimizers": [opt.state_dict() for opt in state.optimizers],
+        "model": model,
+        "optimizers": optimizers,
         "schedulers": [s.state_dict() for s in state.schedulers],
         "step": int(state.step),
     })
@@ -76,9 +148,22 @@ def _read(file: str) -> Dict[str, Any]:
         return torch.load(file, map_location="cpu", weights_only=True)
 
 
+def _local_model(state: Any, donor: Dict[str, Any]) -> Dict[str, Any]:
+    """Each tensor of a whole state dict as this rank's shard of it."""
+    ours = state.model.state_dict()
+    params = dict(state.model.named_parameters())
+    return {k: _shard_of(v, ours[k], params.get(k)) if k in ours else v
+            for k, v in donor.items()}
+
+
 def _load_into(state: Any, raw: Dict[str, Any]) -> Any:
-    state.model.load_state_dict(raw["model"], strict=True)
+    state.model.load_state_dict(_local_model(state, raw["model"]), strict=True)
     for opt, sd in zip(state.optimizers, raw["optimizers"], strict=True):
+        ps = _opt_params(opt)
+        ours = opt.state_dict()["state"]
+        sd = dict(sd, state={i: {k: _shard_of(v, ours.get(i, {}).get(k), ps[i])
+                                 for k, v in st.items()}
+                             for i, st in sd["state"].items()})
         opt.load_state_dict(sd)
     for sched, sd in zip(state.schedulers, raw["schedulers"], strict=True):
         sched.load_state_dict(sd)
@@ -89,10 +174,13 @@ def _load_into(state: Any, raw: Dict[str, Any]) -> Any:
 def save_checkpoint(path: str, state: Any, config: Optional[Config] = None) -> None:
     """Save a `TrainState` (and the config) to the directory `path`."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    _write(os.path.join(path, _STATE), _snapshot(state))
-    if config is not None:
-        _write_config(path, config)
+    snapshot = _snapshot(state)
+    if _rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        _write(os.path.join(path, _STATE), snapshot)
+        if config is not None:
+            _write_config(path, config)
+    _barrier()
 
 
 def restore_checkpoint(path: str, state: Any, strict: bool = True) -> Any:
@@ -106,7 +194,7 @@ def restore_checkpoint(path: str, state: Any, strict: bool = True) -> Any:
     if strict:
         return _load_into(state, raw)
     ours = state.model.state_dict()
-    donor = raw["model"]
+    donor = _local_model(state, raw["model"])
     merged = {k: donor[k] if k in donor and donor[k].shape == v.shape else v
               for k, v in ours.items()}
     state.model.load_state_dict(merged, strict=True)
@@ -151,11 +239,13 @@ class AsyncTrainCheckpointer:
         self.path = os.path.abspath(path)
         self.max_to_keep = max_to_keep
         self._steps_dir = os.path.join(self.path, "steps")
-        os.makedirs(self._steps_dir, exist_ok=True)
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._pending: List[concurrent.futures.Future] = []
-        if config is not None:
-            _write_config(self.path, config)
+        if _rank() == 0:
+            os.makedirs(self._steps_dir, exist_ok=True)
+            if config is not None:
+                _write_config(self.path, config)
+        _barrier()
 
     def _steps(self) -> List[int]:
         """Complete steps, oldest first."""
@@ -171,13 +261,17 @@ class AsyncTrainCheckpointer:
             shutil.rmtree(os.path.join(self._steps_dir, str(old)))
 
     def save(self, step: int, state: Any) -> None:
-        """Queue a save of `state` at `step` (returns after the CPU copy)."""
-        self._pending.append(self._pool.submit(self._save, int(step), _snapshot(state)))
+        """Queue a save of `state` at `step` (returns after the CPU copy;
+        rank 0 alone writes)."""
+        snapshot = _snapshot(state)
+        if _rank() == 0:
+            self._pending.append(self._pool.submit(self._save, int(step), snapshot))
 
     def restore_latest(self, state: Any) -> Tuple[Any, Optional[int]]:
         """(state, step) from the newest complete checkpoint, or
         (state, None) if the directory holds none."""
         self.wait()
+        _barrier()
         steps = self._steps()
         if not steps:
             return state, None

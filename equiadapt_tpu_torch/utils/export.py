@@ -29,16 +29,24 @@ The JAX function's `platforms` has no torch counterpart: an artifact runs
 on the device it was traced on (tensors made inside the function, and
 every kernel launch, are bound to it). Export on the card to serve on the
 card, on the CPU (plain versions of the kernels) to serve on the CPU.
-`export_sharded_apply` needs a device mesh, which the port does not have
-yet (`parallel/`, ROADMAP.md item 16), and raises.
+
+`export_sharded_apply` writes the data-parallel program: the per-rank
+program at the per-rank batch (the global batch split over the mesh's
+data axis), exported as `export_apply` does, behind a header that records
+the world size and the axis (the JAX artifact records `nr_devices`). Its
+`load_exported` refuses a process group of another size, takes each call's
+global batch, runs this rank's slice and all-gathers the outputs, so every
+rank returns the global result.
 """
 
 from __future__ import annotations
 
 import io
+import json
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 from torch import nn
 
@@ -101,23 +109,73 @@ def export_apply(apply_fn: Callable[..., Any], variables: Any, sample: Any, *,
     return buf.getvalue()
 
 
+_SHARDED = b"EQT-SHARDED\n"
+
+
 def export_sharded_apply(apply_fn: Callable[..., Any], variables: Any, sample: Any,
                          mesh: Any, *, axis_name: str = "data") -> bytes:
-    """A data-parallel artifact over a device mesh: not ported yet."""
-    raise NotImplementedError(
-        "export_sharded_apply needs a device mesh (parallel/), not ported yet "
-        "(ROADMAP.md item 16)")
+    """Serialize the data-parallel program of `apply_fn(variables, batch)`
+    over `mesh`, whose `axis_name` axis holds every rank of the world (each
+    rank calls it; None: a single process, the world of one rank): the
+    per-rank program,
+    traced at this rank's slice of the global `sample` along `axis_name`,
+    with the world size and the axis beside it. `load_exported` runs it."""
+    from equiadapt_tpu_torch.parallel.mesh import axis_size, shard_batch
+
+    if mesh is None:  # a single process: the world of one rank
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError("export_sharded_apply in a process group needs its mesh")
+        world, local = 1, sample
+    else:
+        world = dist.get_world_size()
+        if axis_size(mesh, axis_name) != world:
+            raise ValueError(f"export_sharded_apply splits the batch over every rank: "
+                             f"the {axis_name!r} axis has {axis_size(mesh, axis_name)} "
+                             f"of {world}")
+        local = shard_batch(sample, mesh, axis_name)
+    program = export_apply(apply_fn, variables, local)
+    header = json.dumps({"world": world, "axis": axis_name})
+    return _SHARDED + header.encode() + b"\n" + program
 
 
 def load_exported(data: bytes) -> Callable[..., Any]:
-    """Deserialize an `export_apply` artifact into a callable of the batch.
+    """Deserialize an `export_apply` or `export_sharded_apply` artifact
+    into a callable of the batch.
 
     It runs on the device the artifact was traced on and takes batches of
-    the traced shapes and dtypes (any batch size with `symbolic_batch`)."""
-    module = torch.export.load(io.BytesIO(bytes(data))).module()
+    the traced shapes and dtypes (any batch size with `symbolic_batch`). A
+    sharded artifact needs a process group of the world size it was
+    written for (it raises otherwise); its callable takes the global batch
+    on every rank, runs the rank's slice and returns the all-gathered
+    outputs."""
+    data = bytes(data)
+    header = None
+    if data.startswith(_SHARDED):
+        line, data = data[len(_SHARDED):].split(b"\n", 1)
+        header = json.loads(line)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != header["world"]:
+            raise ValueError(f"the artifact was exported for {header['world']} ranks; "
+                             f"this world has {world}")
+    module = torch.export.load(io.BytesIO(data)).module()
 
     def fn(batch):
         with torch.no_grad():
-            return module(batch)
+            if header is None:
+                return module(batch)
+            n, r = world, dist.get_rank() if world > 1 else 0
+            local = pytree.tree_map(
+                lambda x: x[r * (x.shape[0] // n):(r + 1) * (x.shape[0] // n)]
+                if torch.is_tensor(x) else x, batch)
+            return pytree.tree_map(_gather_rows, module(local))
 
     return fn
+
+
+def _gather_rows(y: Any) -> Any:
+    """A rank's output rows, all-gathered in rank order."""
+    if not torch.is_tensor(y) or not dist.is_initialized() or dist.get_world_size() == 1:
+        return y
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, y.contiguous())
+    return torch.cat(parts)

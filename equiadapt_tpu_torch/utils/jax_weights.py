@@ -46,7 +46,7 @@ layouts, for comparing a trained port with a trained Flax model.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +61,8 @@ from equiadapt_tpu_torch.images.networks.steerable import (
 from equiadapt_tpu_torch.models.egnn import DenseGeneral
 from equiadapt_tpu_torch.pointcloud.vector_neurons import VNBilinear
 
-__all__ = ["load_flax_variables", "flax_placements", "flax_variables"]
+__all__ = ["load_flax_variables", "flax_placements", "flax_variables",
+           "FlaxLeaf", "flax_leaf_layouts", "flax_flat_index"]
 
 _BN_NAMES = {
     ("params", "scale"): "weight",
@@ -262,3 +263,42 @@ def flax_variables(module: nn.Module) -> Dict[str, Dict[str, Any]]:
     if not out["batch_stats"]:
         del out["batch_stats"]
     return out
+
+
+class FlaxLeaf(NamedTuple):
+    """A torch tensor's Flax leaf: `name` (torch), `collection`, `path`
+    (Flax names), `shape` (Flax layout) and `dims[f]`, the torch dimension
+    along which Flax dimension f runs (None for a dimension of size 1)."""
+
+    name: str
+    collection: str
+    path: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    dims: Tuple[Optional[int], ...]
+
+
+def flax_flat_index(module: nn.Module, name: str) -> Tuple[FlaxLeaf, np.ndarray]:
+    """Tensor `name` of `module` as its Flax leaf, and the tensor's flat
+    torch index at each position of the Flax leaf (the loader's layout
+    change carried out on the indices)."""
+    tensor = _targets(module)[name]
+    *scope, attr = name.split(".")
+    owner = module.get_submodule(".".join(scope))
+    shape = tuple(tensor.shape)
+    idx = np.arange(int(np.prod(shape, dtype=np.int64)), dtype=np.int64).reshape(shape)
+    collection, leaf, flat = _unconvert(owner, attr, idx)
+    dims = []
+    for f in range(flat.ndim):
+        if flat.shape[f] < 2:
+            dims.append(None)
+            continue
+        step = abs(int(np.take(flat, 1, axis=f).flat[0]) - int(np.take(flat, 0, axis=f).flat[0]))
+        moved = [t for t, v in enumerate(np.unravel_index(step, shape)) if v]
+        dims.append(moved[0] if len(moved) == 1 else None)
+    return FlaxLeaf(name, collection, tuple(_flax_scope(module, scope)) + (leaf,),
+                    tuple(flat.shape), tuple(dims)), flat
+
+
+def flax_leaf_layouts(module: nn.Module) -> List[FlaxLeaf]:
+    """Every parameter and persistent buffer of `module` as its Flax leaf."""
+    return [flax_flat_index(module, name)[0] for name in _targets(module)]

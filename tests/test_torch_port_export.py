@@ -213,13 +213,22 @@ def test_artifact_loads_in_a_fresh_process(tmp_path):
 
 
 def test_scalar_leaf_and_sharded_export_raise():
+    """A scalar leaf under `symbolic_batch` raises. `export_sharded_apply`
+    is ported (item 16): in a single process (mesh None, a world of one
+    rank) its artifact answers as `export_apply`'s, and an artifact written
+    for another world size is refused (worlds of several ranks:
+    tests/test_torch_port_parallel.py)."""
     mods = _port_pipeline()
     with pytest.raises(ValueError, match="scalar leaf"):
         export_apply(lambda m, b: _apply(m, b["x"])[0], mods,
                      {"x": _x((2, 16, 16, 3), 0), "t": torch.tensor(1.0)},
                      symbolic_batch=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        export_sharded_apply(_apply, mods, _x((2, 16, 16, 3), 0), mesh=None)
+    x = _x((2, 16, 16, 3), 0)
+    blob = export_sharded_apply(_apply, mods, x, mesh=None)
+    got, ref = load_exported(blob)(x), load_exported(export_apply(_apply, mods, x))(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError, match="exported for 2 ranks"):
+        load_exported(blob.replace(b'"world": 1', b'"world": 2', 1))
 
 
 # ------------------------------------------- the kernels stay in the graph

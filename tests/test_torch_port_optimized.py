@@ -223,9 +223,13 @@ def test_loader_places_only_the_canonicalizers_own_parameter(fault):
 def test_optimized_canonicalizer_guards():
     net_kw, canon_kw = _canon_kwargs(4, "rotation", "exact")
     net = tconv.ConvNetwork(**net_kw, input_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tp.OptimizedGroupEquivariantImageCanonicalization(
-            net, orbit_sharding=("group", "data"), device="cpu", **canon_kw)
+    # orbit_sharding is ported (item 16): it needs the mesh of a
+    # data-parallel step (tests/test_torch_port_parallel.py runs it)
+    sharded = tp.OptimizedGroupEquivariantImageCanonicalization(
+        net, orbit_sharding=("group", "data"), device="cpu", **canon_kw)
+    assert sharded.orbit_sharding == ("group", "data")
+    with pytest.raises(ValueError, match="active mesh"):
+        sharded.canonicalize(torch.zeros(2, 24, 24, 3))
     canon = tp.OptimizedGroupEquivariantImageCanonicalization(
         net, device="cpu", **canon_kw)
     assert not canon.reference_vector.requires_grad
