@@ -329,13 +329,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    256 x 224 px (outputs within phase 22's bar; K3). Grids 2 x 2 at world
    4, 1 x 1 at world 1. Each run counted on its own, its first K1 / K3 /
    K4 launches checked again at the rank's shapes against the plain
-   versions; the rows join the `kernels` line's `cli_checks`.
+   versions; the rows join the `kernels` line's `cli_checks`;
+24. the tutorials (`equiadapt_tpu_torch.tutorials`) at their own sizes,
+   each asserting its property: the C4 canonicalizer on four quarter
+   turns (K3), the canonicalized ResNet-18 trained 60 steps and swept
+   (K4, K1a), SAM-style segmentation with targets (K3, K1a), n-body with
+   and without SE(3) canonicalization, and the five parallel regimes over
+   the visible cards (NCCL). The first four each counted on its own (the
+   kernels each must launch in `TUTORIAL_KERNELS`), its first K1 / K3 /
+   K4 launches replayed against the plain versions (rows in the `kernels`
+   line's `cli_checks`; launches in its `launches`, and by tutorial in
+   `tutorial_launches`); then
+   `ops.warp.resize`'s five methods on the card against the CPU.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
 n-body, classification-CLI, MFU, point-cloud-training, segmentation,
-item-15 and `parallel` JSON lines, the nvidia-smi line and the `kernels`
-JSON line.
+item-15, `parallel` and `tutorials` JSON lines, the nvidia-smi line and
+the `kernels` JSON line.
 """
 
 from __future__ import annotations
@@ -5187,6 +5198,105 @@ def parallel_phase():
     return {"ranks": ranks, "line": line}
 
 
+
+# phase 24, the tutorials (`equiadapt_tpu_torch.tutorials`) at their own
+# sizes; the kernels each must launch, as the `launches` keys of `counted`
+# ("select_planes/float32,1 source": K1a, from its `select_sources`); the
+# keyword arguments each `main` takes besides the device (none: its sizes)
+TUTORIALS = ("understanding_discrete_canonicalization",
+             "classification_group_equivariant_canonicalization",
+             "instance_segmentation_group_equivariant_canonicalization", "nbody")
+TUTORIAL_KERNELS = {
+    "understanding_discrete_canonicalization": ("select_planes_nhwc/float32",),
+    "classification_group_equivariant_canonicalization": (
+        "rot90_flip_orbit/float32", "select_planes/float32,1 source"),
+    "instance_segmentation_group_equivariant_canonicalization": (
+        "select_planes/float32,1 source", "select_planes_nhwc/float32"),
+    "nbody": (),
+}
+TUTORIAL_KW = {name: {} for name in TUTORIALS + ("multichip_scaling",)}
+# `resize` on the card against the CPU: (H, W) -> (h, w) (shrink, grow, mixed)
+RESIZE_CASES = (((37, 37), (16, 16)), ((16, 16), (37, 37)), ((32, 20), (20, 48)))
+RESIZE_METHODS = ("nearest", "linear", "cubic", "lanczos3", "lanczos5")
+
+
+def resize_phase():
+    """`ops.warp.resize` on the card against the CPU for its five methods,
+    shrinking, growing and mixed, fp32 and bf16: "nearest" bit-equal, fp32
+    within 1e-5 (N(0, 1) inputs), bf16 within one bf16 ulp of the CPU
+    result plus 1e-5 (both resize in fp32 and round once). Returns max
+    |diff| by case."""
+    from equiadapt_tpu_torch.ops.warp import resize
+
+    gen, rows = torch.Generator().manual_seed(24), {}
+    for method in RESIZE_METHODS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for (H, W), size in RESIZE_CASES:
+                x = torch.randn(2, H, W, 3, generator=gen).to(dtype)
+                ref = resize(x, size, method)
+                got = resize(x.to(DEVICE), size, method).cpu()
+                sync()
+                err = (got.float() - ref.float()).abs()
+                tag = str(dtype).removeprefix("torch.")
+                rows[f"{method}/{tag}/{H}x{W}->{size[0]}x{size[1]}"] = err.max().item()
+                assert got.dtype == dtype and got.shape == ref.shape, (method, dtype)
+                if method == "nearest":
+                    assert torch.equal(got, ref), (method, dtype)
+                elif dtype == torch.float32:
+                    assert err.max().item() <= 1e-5, (method, size, err.max().item())
+                else:
+                    top = ref.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+                    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+                    assert bool((err <= ulp + 1e-5).all()), (method, size, err.max().item())
+    return rows
+
+
+def tutorial_launches(run, entry_name):
+    """A tutorial run's launches of the `kernels` line's entry
+    `entry_name` ("select_planes[float32,1 source]" is K1a: the run's
+    one-source K1 launches; "select_planes[float32]" the others)."""
+    name, tag = entry_name.rstrip("]").split("[")
+    if name == "select_planes":
+        return run["select_sources"].get(f"{name}/{tag}", 0)
+    return run["launches"].get(f"{name}/{tag.split(',')[0]}", 0)
+
+
+def tutorials_phase(sw, orb, src_log):
+    """Phase 24: the five tutorials on the card at their own sizes, each
+    `main(device=DEVICE)` asserting its property (identical canonical
+    copies and a nonzero prior gradient; identical per-element accuracies;
+    target masks inverted exactly; the canonicalized n-body model's
+    rotated MSE equal to its MSE; the five parallel regimes over the
+    visible cards, NCCL). The first four each counted on its own
+    (`counted`: launches set to 0 before, read after, the first K1 / K3 /
+    K4 launch of each kind replayed against its plain version), each
+    required to launch its kernels (`TUTORIAL_KERNELS`); then `resize`'s
+    five methods against the CPU (`resize_phase`)."""
+    import importlib
+
+    out = {}
+    for name in TUTORIALS:
+        mod = importlib.import_module(f"equiadapt_tpu_torch.tutorials.{name}")
+        t0 = time.perf_counter()
+        result, counts = counted((sw, orb), src_log, f"tutorial_{name}",
+                                 lambda: mod.main(device=DEVICE, **TUTORIAL_KW[name]))
+        seen = {**counts["launches"], **counts["select_sources"]}
+        for key in TUTORIAL_KERNELS[name]:
+            assert seen.get(key, 0) > 0, (name, key, counts)
+        out[name] = {"s": time.perf_counter() - t0, "result": result, **counts}
+        log(f"tutorial {name}: {out[name]['s']:.1f} s, launches {counts['launches']}, "
+            f"select sources {counts['select_sources']}, paths {counts['paths']}")
+    from equiadapt_tpu_torch.tutorials import multichip_scaling
+
+    t0 = time.perf_counter()
+    result = multichip_scaling.main(device=DEVICE, **TUTORIAL_KW["multichip_scaling"])
+    out["multichip_scaling"] = {"s": time.perf_counter() - t0, "result": result}
+    out["resize"] = resize_phase()
+    log(f"tutorial multichip_scaling: {out['multichip_scaling']['s']:.1f} s, {result}; "
+        f"resize max |diff| {max(out['resize'].values()):.3g}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -5549,6 +5659,16 @@ def main() -> int:
             add_paths(run["paths"])
             orbit_launches[path] = {k: v for k, v in run["launches"].items()
                                     if k.startswith("rot90_flip_orbit/")}
+        # the tutorials (phase 24): each counted on its own; `resize` on the
+        # card against the CPU
+        with torch.enable_grad():
+            times["tutorials"] = tut = tutorials_phase(sw, orb, src_log)
+        for name in TUTORIALS:
+            run = tut[name]
+            launches.update({f"tutorial_{name}:{k}": v for k, v in run["launches"].items()})
+            add_paths(run["paths"])
+            orbit_launches[f"tutorial_{name}"] = {k: v for k, v in run["launches"].items()
+                                                  if k.startswith("rot90_flip_orbit/")}
         for key, row in times["continuous_train"].items():
             launches.update({f"continuous_train_{key}:{k}": v
                              for k, v in row["launches"].items()})
@@ -5615,6 +5735,7 @@ def main() -> int:
         cli_checked += [row for run in ("train", "test") for row in seg["cli"][run]["checked"]]
         cli_checked += pre["train"]["checked"] + pre["test_counts"]["checked"]
         cli_checked += [row for run in par_runs.values() for row in run["checked"]]
+        cli_checked += [row for name in TUTORIALS for row in tut[name]["checked"]]
         # K1a and K3 at config 5's shapes (phase 21): the rows of
         # `seg_kernel_rows` and the launches of its eval path
         seg_rows = {"select_planes[float32,1 source]": "select_planes",
@@ -5631,6 +5752,9 @@ def main() -> int:
         for entry in kernels:
             entry["cli_checks"] = [{k: v for k, v in row.items() if k != "kernel"}
                                    for row in cli_checked if row["kernel"] == entry["name"]]
+            entry["tutorial_launches"] = {
+                name: n for name in TUTORIALS
+                if (n := tutorial_launches(tut[name], entry["name"]))}
         names = {entry["name"] for entry in kernels}
         assert {row["kernel"] for row in cli_checked} <= names, cli_checked
         for kname in ("select_planes[float32]", "select_planes[float32,1 source]",
@@ -5710,6 +5834,13 @@ def main() -> int:
         "native_loader": {k: nl[k] for k in ("loader_batches_per_s", "loader_img_per_s",
                                              "end_to_end_img_per_s")}}}))
     log(json.dumps({"parallel": {"device": smi, **times["parallel"]["line"]}}))
+    log(json.dumps({"tutorials": {
+        "device": smi,
+        **{name: {"s": tut[name]["s"], "launches": tut[name]["launches"],
+                  "select_sources": tut[name]["select_sources"], "paths": tut[name]["paths"],
+                  "result": tut[name]["result"]} for name in TUTORIALS},
+        "multichip_scaling": tut["multichip_scaling"],
+        "resize_max_abs_err": max(tut["resize"].values())}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -78,7 +78,9 @@ from equiadapt_tpu_torch.common import (
     IdentityCanonicalization,
     IdentityCanonicalizationInfo,
     LieParameterization,
+    gram_schmidt,
     identity_metric,
+    modified_gram_schmidt,
     prior_regularization_loss,
 )
 from equiadapt_tpu_torch.images import (
@@ -92,6 +94,10 @@ from equiadapt_tpu_torch.images import (
     OptimizedGroupEquivariantImageCanonicalization,
     OptimizedSteerableImageCanonicalization,
     ResNet18Network,
+    RotationEquivariantConv,
+    RotationEquivariantConvLift,
+    RotoReflectionEquivariantConv,
+    RotoReflectionEquivariantConvLift,
     SteerableImageCanonicalization,
     SteerableNetwork,
     WideResNet50Network,
@@ -195,6 +201,9 @@ from equiadapt_tpu_torch.utils.flops import (
     train_step_flops,
 )
 
+# the reference's name for the point-cloud edge features (graph_feature_cross)
+get_graph_feature_cross = graph_feature_cross
+
 __all__ = [
     "BaseCanonicalization",
     "IdentityCanonicalization",
@@ -206,6 +215,8 @@ __all__ = [
     "prior_regularization_loss",
     "identity_metric",
     "LieParameterization",
+    "gram_schmidt",
+    "modified_gram_schmidt",
     "DiscreteGroupImageCanonicalization",
     "GroupEquivariantImageCanonicalization",
     "OptimizedGroupEquivariantImageCanonicalization",
@@ -217,6 +228,10 @@ __all__ = [
     "ResNet18Network",
     "WideResNet50Network",
     "WideResNet101Network",
+    "RotationEquivariantConv",
+    "RotationEquivariantConvLift",
+    "RotoReflectionEquivariantConv",
+    "RotoReflectionEquivariantConvLift",
     "ContinuousGroupImageCanonicalization",
     "SteerableImageCanonicalization",
     "OptimizedSteerableImageCanonicalization",
@@ -255,6 +270,7 @@ __all__ = [
     "EquivariantPointcloudCanonicalization",
     "VNSmall",
     "graph_feature_cross",
+    "get_graph_feature_cross",
     "VNBatchNorm",
     "VNBilinear",
     "VNLeakyReLU",

@@ -8,7 +8,7 @@ returns its info, and `invert_canonicalization`,
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +21,7 @@ __all__ = [
     "ContinuousGroupElement",
     "ContinuousCanonicalizationInfo",
     "IdentityCanonicalizationInfo",
+    "CanonicalizationInfo",
     "prior_regularization_loss",
     "identity_metric",
 ]
@@ -92,6 +93,12 @@ class ContinuousCanonicalizationInfo:
 @dataclass
 class IdentityCanonicalizationInfo:
     """No-op canonicalization."""
+
+
+# the union of the three concrete infos
+CanonicalizationInfo = Union[DiscreteCanonicalizationInfo,
+                             ContinuousCanonicalizationInfo,
+                             IdentityCanonicalizationInfo]
 
 
 def _mse_to_identity(matrix_rep: Tensor) -> Tensor:

@@ -16,6 +16,10 @@ from equiadapt_tpu_torch.images.networks import (
     EquivariantNetwork,
     EquivariantWideResNet,
     ResNet18Network,
+    RotationEquivariantConv,
+    RotationEquivariantConvLift,
+    RotoReflectionEquivariantConv,
+    RotoReflectionEquivariantConvLift,
     SteerableNetwork,
     WideResNet50Network,
     WideResNet101Network,
@@ -35,6 +39,10 @@ __all__ = [
     "EquivariantNetwork",
     "EquivariantWideResNet",
     "ResNet18Network",
+    "RotationEquivariantConv",
+    "RotationEquivariantConvLift",
+    "RotoReflectionEquivariantConv",
+    "RotoReflectionEquivariantConvLift",
     "SteerableNetwork",
     "WideResNet50Network",
     "WideResNet101Network",

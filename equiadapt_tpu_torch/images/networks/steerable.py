@@ -41,7 +41,6 @@ from torch import nn
 from equiadapt_tpu_torch.common.layers import global_mean, stats_shard
 
 Tensor = torch.Tensor
-_EPS = 1e-5  # NormBatchNorm's epsilon, as in the Flax module
 
 __all__ = ["SteerableConv", "NormNonlinearity", "NormBatchNorm", "SteerableNetwork"]
 
@@ -143,12 +142,13 @@ class SteerableConv(nn.Module):
     assembles the OIHW kernel from them (`_assembly_plan`)."""
 
     def __init__(self, in_orders: Sequence[int], out_orders: Sequence[int],
-                 kernel_size: int, padding: int = 0, device="cuda",
+                 kernel_size: int, stride: int = 1, padding: int = 0, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.in_orders = tuple(in_orders)
         self.out_orders = tuple(out_orders)
         self.kernel_size = kernel_size
+        self.stride = stride
         self.padding = padding
         self._names = []
         for name, fi, fo in _coefficient_names(self.in_orders, self.out_orders):
@@ -175,7 +175,8 @@ class SteerableConv(nn.Module):
             _field_channels(self.out_orders), _field_channels(self.in_orders), K, K)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.conv2d(x, self.kernel().to(x.dtype), padding=self.padding)
+        return F.conv2d(x, self.kernel().to(x.dtype), stride=self.stride,
+                        padding=self.padding)
 
 
 class NormNonlinearity(nn.Module):
@@ -224,13 +225,15 @@ class NormBatchNorm(nn.Module):
     Eval: s = norm_sq. Training: s is the batch statistic, the mean over
     (B, H, W) of each field's sum of squares (taken in x's dtype, as the JAX
     module), and the running statistic moves by Flax's convention,
-    norm_sq <- 0.9 norm_sq + 0.1 s (torch's momentum would be 0.1)."""
+    norm_sq <- momentum norm_sq + (1 - momentum) s (Flax's default 0.9;
+    torch's momentum would be 0.1)."""
 
-    momentum = 0.9
-
-    def __init__(self, orders: Sequence[int], device="cuda"):
+    def __init__(self, orders: Sequence[int], momentum: float = 0.9,
+                 epsilon: float = 1e-5, device="cuda"):
         super().__init__()
         self.orders = tuple(orders)
+        self.momentum = momentum
+        self.epsilon = epsilon
         n = len(self.orders)
         self.scale = nn.Parameter(torch.ones(n, device=device))
         self.register_buffer("norm_sq", torch.ones(n, device=device))
@@ -243,7 +246,7 @@ class NormBatchNorm(nn.Module):
         shape = (1, -1, 1, 1)
         scale = self.scale[self._field].reshape(shape)
         if not training:
-            denom = torch.sqrt(self.norm_sq[self._field] + _EPS).reshape(shape)
+            denom = torch.sqrt(self.norm_sq[self._field] + self.epsilon).reshape(shape)
             return x * scale / denom
         B, _, H, W = x.shape
         per_field = x.new_zeros(B, len(self.orders), H, W).index_add_(
@@ -254,7 +257,7 @@ class NormBatchNorm(nn.Module):
         with torch.no_grad():
             self.norm_sq.mul_(self.momentum).add_(
                 batch.float(), alpha=1.0 - self.momentum)
-        return x * scale / torch.sqrt(batch[self._field] + _EPS).reshape(shape)
+        return x * scale / torch.sqrt(batch[self._field] + self.epsilon).reshape(shape)
 
 
 class SteerableNetwork(nn.Module):
@@ -262,13 +265,18 @@ class SteerableNetwork(nn.Module):
     fields, `num_layers` blocks of SteerableConv -> NormBatchNorm ->
     NormNonlinearity over `out_channels` fields of each order 0, 1, 2, then
     a SteerableConv to `num_vectors` order-1 fields, averaged over space.
-    SO(2) only: the JAX module's `group_type` has the one value "rotation",
-    and its `num_rotations` is unused, so neither is an argument here."""
+    SO(2) only: `group_type` must be "rotation" (the reference asserts it;
+    another value raises), and `num_rotations` is accepted and unused, as
+    in the JAX module."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 9,
                  num_layers: int = 1, num_vectors: int = 2,
+                 group_type: str = "rotation", num_rotations: int = -1,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
+        if group_type != "rotation":
+            raise ValueError(
+                f"SteerableNetwork is SO(2) only: group_type 'rotation', got {group_type!r}")
         self.num_vectors = num_vectors
         hidden = (0,) * out_channels + (1,) * out_channels + (2,) * out_channels
         cur = (0,) * in_channels

@@ -30,6 +30,7 @@ The module runs no hand kernel: the JAX package has none on this path.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -44,7 +45,7 @@ from equiadapt_tpu_torch.models.segmentation import (
     dice_loss,
     focal_loss,
 )
-from equiadapt_tpu_torch.ops.warp import resize
+from equiadapt_tpu_torch.ops.warp import _resize_nearest, resize
 
 Tensor = torch.Tensor
 
@@ -58,18 +59,8 @@ def decode_boxes(centers: Tensor, ltrb: Tensor) -> Tensor:
     return torch.stack([cx - l, cy - t, cx + r, cy + b], dim=-1)
 
 
-def _upsample_nearest(x: Tensor, size: Tuple[int, int]) -> Tensor:
-    """Nearest resize of an NCHW map's (H, W) as `jax.image.resize(...,
-    "nearest")` takes it: output index i reads floor((i + 0.5) * in / out),
-    computed in fp32."""
-    for dim, n in zip((2, 3), size):
-        m = x.shape[dim]
-        if m == n:
-            continue
-        src = torch.floor((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5)
-                          * m / n).long()
-        x = x.index_select(dim, src)
-    return x
+# the nearest resize of an NCHW map's (H, W), as `jax.image.resize(..., "nearest")`
+_upsample_nearest = functools.partial(_resize_nearest, dims=(2, 3))
 
 
 class _FPNLite(nn.Module):

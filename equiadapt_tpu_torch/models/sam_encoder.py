@@ -88,19 +88,22 @@ def _rel_pos_table(q_size: int, k_size: int, rel_pos: Tensor) -> Tensor:
 
 class SamAttention(nn.Module):
     """Multi-head attention with decomposed relative position biases over a
-    (B, H, W, C) token grid (a window, or the whole grid)."""
+    (B, H, W, C) token grid (a window, or the whole grid). With
+    use_rel_pos=False it has no `rel_pos_*` tables and adds no bias."""
 
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int],
-                 device="cuda"):
+                 use_rel_pos: bool = True, device="cuda"):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = hd = dim // num_heads
+        self.use_rel_pos = use_rel_pos
         self.qkv = nn.Linear(dim, 3 * dim, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
-        self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd,
-                                                  device=device))
-        self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd,
-                                                  device=device))
+        if use_rel_pos:
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd,
+                                                      device=device))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd,
+                                                      device=device))
 
     def forward(self, x: Tensor) -> Tensor:
         B, H, W, C = x.shape
@@ -117,17 +120,18 @@ class SamAttention(nn.Module):
         qkv = qkv.reshape(B, H * W, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, HW, hd)
         attn = (q * hd ** -0.5) @ k.transpose(-2, -1)  # (B, nh, HW, HW)
-        rel_h, rel_w = self._rel_pos()
-        Rh = _rel_pos_table(H, H, rel_h)  # (H, H, hd)
-        Rw = _rel_pos_table(W, W, rel_w)  # (W, W, hd)
-        r_q = q.reshape(B, nh, H, W, hd)
-        bias_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, Rh)
-        bias_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, Rw)
-        # in place, in the JAX package's order: no backward reads the
-        # product, and a global block's scores are the largest tensor here
-        attn = attn.view(B, nh, H, W, H, W)
-        attn.add_(bias_h[..., :, None]).add_(bias_w[..., None, :])
-        attn = torch.softmax(attn.view(B, nh, H * W, H * W), dim=-1)
+        if self.use_rel_pos:
+            rel_h, rel_w = self._rel_pos()
+            Rh = _rel_pos_table(H, H, rel_h)  # (H, H, hd)
+            Rw = _rel_pos_table(W, W, rel_w)  # (W, W, hd)
+            r_q = q.reshape(B, nh, H, W, hd)
+            bias_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, Rh)
+            bias_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, Rw)
+            # in place, in the JAX package's order: no backward reads the
+            # product, and a global block's scores are the largest tensor here
+            attn.view(B, nh, H, W, H, W).add_(bias_h[..., :, None]).add_(
+                bias_w[..., None, :])
+        attn = torch.softmax(attn, dim=-1)
         return (attn @ v).transpose(1, 2).reshape(B, H * W, nh * hd)
 
 

@@ -359,17 +359,93 @@ def center_crop(x: Tensor, size: Tuple[int, int]) -> Tensor:
     return x[:, top : top + h, left : left + w, :]
 
 
-def resize(x: Tensor, size: Tuple[int, int]) -> Tensor:
-    """Bilinear resize of an NHWC batch, half-pixel centres, antialiased
-    when it shrinks: the behaviour of `jax.image.resize(..., "linear")`,
-    whose antialias defaults to True. Reduced-precision input is resized in
-    fp32 and rounded once."""
-    xn = x.permute(0, 3, 1, 2)
-    out = F.interpolate(
-        xn.float(), size=tuple(size), mode="bilinear", align_corners=False,
-        antialias=True,
-    )
-    return out.to(x.dtype).permute(0, 2, 3, 1)
+def _resize_nearest(x: Tensor, size: Tuple[int, int], dims: Tuple[int, int]) -> Tensor:
+    """Nearest resize of `x` along `dims` to `size` as `jax.image.resize(...,
+    "nearest")` takes it: output index i reads floor((i + 0.5) * in / out),
+    computed in fp32; a dimension already at its size is left alone."""
+    for dim, n in zip(dims, size):
+        m = x.shape[dim]
+        if m == n:
+            continue
+        src = torch.floor((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5)
+                          * m / n).long()
+        x = x.index_select(dim, src)
+    return x
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel, a = -0.5."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _lanczos(radius: float):
+    def kernel(x: np.ndarray) -> np.ndarray:
+        y = radius * np.sin(np.pi * x) * np.sin(np.pi * x / radius)
+        out = np.where(x > 1e-3, y / np.where(x != 0, np.pi ** 2 * x ** 2, 1.0), 1.0)
+        return np.where(x > radius, 0.0, out)
+    return kernel
+
+
+_RESIZE_KERNELS = {"cubic": _keys_cubic, "lanczos3": _lanczos(3.0),
+                   "lanczos5": _lanczos(5.0)}
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_weights(n_in: int, n_out: int, method: str) -> Tensor:
+    """The (n_out, n_in) float64 matrix of `jax.image.scale_and_translate`
+    at scale n_out / n_in, no translation: the kernel at the distance from
+    each output's sample point, (i + 0.5) * n_in / n_out - 0.5, widened by
+    max(1, n_in / n_out) (antialiased when it shrinks), each output's taps
+    normalised to sum 1 (0 where the sum is within 1000 fp32 epsilons of
+    0) and zero for a sample point outside the input."""
+    inv_scale = n_in / n_out
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / max(inv_scale, 1.0)
+    w = _RESIZE_KERNELS[method](x)
+    total = np.sum(w, axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
+    return torch.from_numpy(np.ascontiguousarray(w.T))
+
+
+def resize(x: Tensor, size: Tuple[int, int], method: str = "linear") -> Tensor:
+    """Resize of an NHWC batch's (H, W) to `size` as `jax.image.resize`
+    does it (antialias on). `method`:
+
+    * "linear": bilinear, half-pixel centres, antialiased when it shrinks
+      (`F.interpolate(..., antialias=True)`);
+    * "nearest": output i reads input floor((i + 0.5) * in / out);
+    * "cubic" (Keys, a = -0.5), "lanczos3", "lanczos5": JAX's separable
+      weight matrices (`_resize_weights`), built on the host in float64,
+      cast to the compute dtype and applied as two products. Torch's
+      bicubic (a = -0.75 without antialias) is another function.
+
+    Reduced-precision input is resized in fp32 and rounded once; "nearest"
+    moves the values as they are."""
+    if method == "nearest":
+        return _resize_nearest(x, size, (1, 2))
+    if method == "linear":
+        xn = x.permute(0, 3, 1, 2)
+        out = F.interpolate(
+            xn.float(), size=tuple(size), mode="bilinear", align_corners=False,
+            antialias=True,
+        )
+        return out.to(x.dtype).permute(0, 2, 3, 1)
+    if method not in _RESIZE_KERNELS:
+        raise ValueError(f'Unknown resize method "{method}"')
+    compute = x.dtype if x.dtype in (torch.float32, torch.float64) else torch.float32
+    out = x.to(compute)
+    for dim, n in zip((1, 2), size):
+        m = out.shape[dim]
+        if m == n:  # JAX skips a dimension at its size
+            continue
+        w = _resize_weights(m, n, method).to(device=x.device, dtype=compute)
+        out = (torch.einsum("oh,bhwc->bowc", w, out) if dim == 1
+               else torch.einsum("ow,bhwc->bhoc", w, out))
+    return out.to(x.dtype) if x.dtype.is_floating_point else out
 
 
 def crop_and_resize(x: Tensor, in_shape: Tuple[int, int, int],

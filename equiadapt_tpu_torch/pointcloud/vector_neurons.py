@@ -139,12 +139,12 @@ class VNSoftplus(nn.Module):
 
 class VNBatchNorm(nn.Module):
     """Batch-normalized vector norms, directions kept: norm + EPS over the
-    vector axis, `BatchNorm_0` (Flax momentum 0.9) over the channels,
-    x / norm * norm_bn."""
+    vector axis, `BatchNorm_0` (Flax `momentum`, default 0.9) over the
+    channels, x / norm * norm_bn."""
 
-    def __init__(self, num_channels: int, device="cuda"):
+    def __init__(self, num_channels: int, momentum: float = 0.9, device="cuda"):
         super().__init__()
-        self.BatchNorm_0 = BatchNormLastAxis(num_channels, momentum=0.9,
+        self.BatchNorm_0 = BatchNormLastAxis(num_channels, momentum=momentum,
                                              device=device)
 
     def forward(self, x: Tensor, training: bool = False) -> Tensor:

@@ -28,7 +28,9 @@ Flax gives their counterparts, so a leaf's path names its torch owner:
 * a raw parameter of any other owner, copied as it is when the owner has a
   parameter of that name (the optimized canonicalizer's own
   `reference_vector` (1, D), beside its network's leaves; the transformers'
-  `pos_embedding`, `cls_token`, `rel_pos_h`, ...).
+  `pos_embedding`, `cls_token`, `rel_pos_h`, ...). A `SamAttention` built
+  with use_rel_pos=False has no `rel_pos_*` tables, as its Flax tree has
+  no such leaves, so the two trees match both ways.
 
 A module whose torch names differ from its Flax names (SAM's encoder, named
 after SAM's torch tree) carries `flax_aliases`, {Flax name: torch path}
