@@ -20,6 +20,10 @@ forward (`pipeline(x)[0]`, the logits) at the served batch shape as a
 StableHLO) and prints its size; it keeps the hand kernels' launches and
 runs on the device it was exported on (load it with
 `utils.export.load_exported` after importing `equiadapt_tpu_torch`).
+`experiment.profile=true` traces the five batches into
+`experiment.profile_dir` (`utils.profiling.profile_trace`) and prints the
+program's spans, the idle time by span and the counters
+(`utils.profiling.profile_report`).
 `main(argv, device="cuda")` runs on the card unless asked for the CPU; it
 returns {"images_per_s", "warmup_s", "pipeline", "export_bytes"} (the
 pipeline it served; the artifact's size, or None).
@@ -42,6 +46,7 @@ from equiadapt_tpu_torch.pipelines.classification import (
 from equiadapt_tpu_torch.utils.checkpoint import restore_checkpoint, restore_config
 from equiadapt_tpu_torch.utils.config import Config, compose_config
 from equiadapt_tpu_torch.utils.export import export_apply
+from equiadapt_tpu_torch.utils.profiling import profile_report, profile_trace
 
 NUM_BATCHES = 5
 
@@ -105,15 +110,20 @@ def main(argv, device="cuda"):
                 export_bytes = len(blob)
                 print(f"exported torch.export artifact: {export_path} "
                       f"({export_bytes} bytes)")
-            t0 = time.perf_counter()
-            for i in range(NUM_BATCHES):
-                logits, _ = pipe(batch(1 + i), training=False)
-            float(logits.float().sum())  # waits for the device
-            dt = time.perf_counter() - t0
+            with profile_trace(cfg.experiment.profile_dir, enabled=cfg.experiment.profile):
+                t0 = time.perf_counter()
+                for i in range(NUM_BATCHES):
+                    logits, _ = pipe(batch(1 + i), training=False)
+                float(logits.float().sum())  # waits for the device
+                dt = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.benchmark = benchmark
     rate = NUM_BATCHES * B / dt
     print(f"served {NUM_BATCHES} batches: {rate:.1f} images/s")
+    if cfg.experiment.profile:
+        print(f"profile trace written to {cfg.experiment.profile_dir}")
+        for line in profile_report(cfg.experiment.profile_dir):
+            print(line)
     return {"images_per_s": rate, "warmup_s": warmup, "pipeline": pipe,
             "export_bytes": export_bytes}
 

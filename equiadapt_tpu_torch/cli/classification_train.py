@@ -92,7 +92,7 @@ from equiadapt_tpu_torch.utils.metrics import (
     assert_finite_loss,
     save_canonized_images,
 )
-from equiadapt_tpu_torch.utils.profiling import profile_trace
+from equiadapt_tpu_torch.utils.profiling import profile_report, profile_trace
 from equiadapt_tpu_torch.utils.registry import (
     get_image_canonicalization_network,
     get_image_canonicalizer,
@@ -315,6 +315,8 @@ def main(argv, device="cuda", timeout=None):
                 state, m = step(state, b, draws)
             float(m["loss/total"])  # waits for the device
         say(f"profile trace written to {cfg.experiment.profile_dir}")
+        for line in profile_report(cfg.experiment.profile_dir):
+            say(line)
     try:
         for epoch in range(start_epoch, cfg.experiment.num_epochs):
             for batch in get_batches(cfg, generator(seed, epoch, device),

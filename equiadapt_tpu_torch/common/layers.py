@@ -51,6 +51,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from equiadapt_tpu_torch.utils.profiling import annotate
+
 Tensor = torch.Tensor
 
 __all__ = ["BatchNorm", "Dropout", "frozen_batch_stats", "BatchShard",
@@ -235,12 +237,14 @@ class _SyncBatchNormFn(torch.autograd.Function):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         stats = torch.cat([xf.sum(dims), torch.full((1,), float(x.numel() // C),
                                                     dtype=xf.dtype, device=x.device)])
-        dist.all_reduce(stats, group=group)
+        with annotate("dist/sync_bn"):
+            dist.all_reduce(stats, group=group)
         n = stats[-1]
         mean = stats[:C] / n
         shape = [1, C] + [1] * (x.dim() - 2)
         m2 = ((xf - mean.view(shape)) ** 2).sum(dims)
-        dist.all_reduce(m2, group=group)
+        with annotate("dist/sync_bn"):
+            dist.all_reduce(m2, group=group)
         var = m2 / n
         invstd = torch.rsqrt(var + eps)
         y = (xf - mean.view(shape)) * (invstd * weight).view(shape) + bias.view(shape)
@@ -260,7 +264,8 @@ class _SyncBatchNormFn(torch.autograd.Function):
         db = gf.sum(dims)
         dw = (gf * xhat).sum(dims)
         sums = torch.cat([db * weight, dw * weight])
-        dist.all_reduce(sums, group=ctx.group)
+        with annotate("dist/sync_bn"):
+            dist.all_reduce(sums, group=ctx.group)
         sum_dy, sum_dy_xhat = sums[:C] / ctx.n, sums[C:] / ctx.n
         dx = (gf * weight.view(shape) - sum_dy.view(shape)
               - xhat * sum_dy_xhat.view(shape)) * invstd.view(shape)

@@ -32,6 +32,12 @@ tiling gate) has no counterpart.
 with zeros fill, then blends the reflection; "vector" raises, as in the JAX
 package.
 
+Spans (`utils.profiling.annotate`): `canon` around `canonicalize`, with
+`canon/get_groupelement` (the cast to `compute_dtype`, `canon/prep` for the
+crop and resize, the network, the element from its vectors) and
+`canon/warp` (the reflection blend, the warp, the cast back) under it;
+`canon/invert` around the invert.
+
 `OptimizedSteerableImageCanonicalization` augments the batch with random
 rotations (and reflections) drawn from the `generator` given to
 `canonicalize`, in eval as well as in training, as the JAX module draws
@@ -70,6 +76,7 @@ from equiadapt_tpu_torch.ops.warp import (
     hflip,
     warp_center_rotation_fast_diff,
 )
+from equiadapt_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -129,8 +136,9 @@ class ContinuousGroupImageCanonicalization(BaseCanonicalization):
         self, x: Tensor
     ) -> Tensor:
         """Centre-crop by input_crop_ratio, then resize (NHWC)."""
-        return crop_and_resize(x, self.in_shape, self.input_crop_ratio,
-                               self.resize_shape)
+        with annotate("canon/prep"):
+            return crop_and_resize(x, self.in_shape, self.input_crop_ratio,
+                                   self.resize_shape)
 
     def get_group_from_out_vectors(
         self, out_vectors: Tensor
@@ -180,23 +188,26 @@ class ContinuousGroupImageCanonicalization(BaseCanonicalization):
         training=True runs the network in train mode (batch statistics)
         and warps differentiably in the rotation; `generator` draws the
         optimized variant's augmentation."""
-        in_dtype = x.dtype
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-        element, matrix_rep, extras = self.get_groupelement(x, training, generator)
-        R_inv = _transpose_trick(element.rotation)
-        if element.reflection is not None:
-            r = element.reflection[:, None, None, None].to(x.dtype)
-            x = (1.0 - r) * x + r * hflip(x)
-        x = self._warp(x, R_inv, self.padding_mode, training)
-        if self.output_dtype != "compute":
-            x = x.to(in_dtype)
-        info = ContinuousCanonicalizationInfo(
-            matrix_rep=matrix_rep, element=element, extras=extras
-        )
-        if targets is not None:
-            return x, targets, info
-        return x, info
+        with annotate("canon"):
+            in_dtype = x.dtype
+            with annotate("canon/get_groupelement"):
+                if self.compute_dtype is not None:
+                    x = x.to(self.compute_dtype)
+                element, matrix_rep, extras = self.get_groupelement(x, training, generator)
+            with annotate("canon/warp"):
+                R_inv = _transpose_trick(element.rotation)
+                if element.reflection is not None:
+                    r = element.reflection[:, None, None, None].to(x.dtype)
+                    x = (1.0 - r) * x + r * hflip(x)
+                x = self._warp(x, R_inv, self.padding_mode, training)
+                if self.output_dtype != "compute":
+                    x = x.to(in_dtype)
+            info = ContinuousCanonicalizationInfo(
+                matrix_rep=matrix_rep, element=element, extras=extras
+            )
+            if targets is not None:
+                return x, targets, info
+            return x, info
 
     def invert_canonicalization(
         self, info: ContinuousCanonicalizationInfo, x_canonicalized_out: Tensor,
@@ -216,12 +227,13 @@ class ContinuousGroupImageCanonicalization(BaseCanonicalization):
             raise ValueError(
                 "induced_rep_type must be scalar or vector for continuous groups"
             )
-        y = self._warp(x_canonicalized_out, info.element.rotation, "zeros",
-                       training)
-        if info.element.reflection is not None:
-            r = info.element.reflection[:, None, None, None]
-            y = (1.0 - r) * y + r * hflip(y)
-        return y
+        with annotate("canon/invert"):
+            y = self._warp(x_canonicalized_out, info.element.rotation, "zeros",
+                           training)
+            if info.element.reflection is not None:
+                r = info.element.reflection[:, None, None, None]
+                y = (1.0 - r) * y + r * hflip(y)
+            return y
 
 
 class SteerableImageCanonicalization(ContinuousGroupImageCanonicalization):

@@ -23,6 +23,12 @@ Counterpart of `equiadapt_tpu/images/canonicalization/discrete_group.py`
 `invert_canonicalization` goes through `ops.group_action` (kernel K2 for a
 regular rep, in training too where the fused invert applies).
 
+Spans (`utils.profiling.annotate`, the JAX package's scope names): `canon`
+around `canonicalize`, with `canon/get_group_activations` (the cast to
+`compute_dtype`, `canon/prep` for the crop and resize, the energy
+network), `canon/select_element` and `canon/warp` (steps 4-5 and the cast
+back) under it; `canon/invert` around the invert.
+
 `training` is an argument, as in the JAX package; the module mode is not
 read. Random draws (dropout masks, Gumbel noise, the optimized variant's
 artifact rotations) come from the `generator` given to `canonicalize`.
@@ -61,6 +67,7 @@ from equiadapt_tpu_torch.ops.warp import (
     hflip,
     rotate_discrete,
 )
+from equiadapt_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -122,8 +129,9 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         self, x: Tensor
     ) -> Tensor:
         """Centre-crop by input_crop_ratio, then resize (NHWC)."""
-        return crop_and_resize(x, self.in_shape, self.input_crop_ratio,
-                               self.resize_shape)
+        with annotate("canon/prep"):
+            return crop_and_resize(x, self.in_shape, self.input_crop_ratio,
+                                   self.resize_shape)
 
     def get_group_activations(
         self, x: Tensor, training: bool = False,
@@ -175,42 +183,47 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         (D_n), the boxes rotated with the element's angle and re-aligned,
         the masks rotated as the image is, with zeros fill (eval: K1 on
         their view of NCHW memory; training: the one-hot blend)."""
-        in_dtype = x.dtype
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-        acts, extras = self.get_group_activations(
-            x, training=training, generator=generator, **kwargs)
-        acts = acts.float()  # selection stays fp32
-        element, onehot = self.groupactivations_to_groupelement(
-            acts, training, generator)
-        if element.reflection is not None:
-            r = element.reflection[:, None, None, None].to(x.dtype)
-            x = (1.0 - r) * x + r * hflip(x)
-        n = self.num_rotations
-        rot_onehot = (
-            onehot[:, :n] + onehot[:, n:]
-            if self.group_type == "roto-reflection" else onehot
-        )
-        if training:
-            x = rotate_discrete(x, rot_onehot.to(x.dtype), n, -1.0,
-                                self.padding_mode, self.warp_mode)
-        else:
-            idx = torch.argmax(rot_onehot, dim=-1)
-            x = rotate_select(x, idx, n, -1.0, self.padding_mode, self.warp_mode)
-        if self.output_dtype != "compute":
-            x = x.to(in_dtype)
-        info = DiscreteCanonicalizationInfo(
-            group_activations=acts,
-            onehot=onehot,
-            element=element,
-            num_rotations=self.num_rotations,
-            group_type=self.group_type,
-            extras=extras,
-        )
-        if targets is not None:
-            return x, self._canonicalize_targets(
-                targets, element, rot_onehot, x.shape[2], training), info
-        return x, info
+        with annotate("canon"):
+            in_dtype = x.dtype
+            with annotate("canon/get_group_activations"):
+                if self.compute_dtype is not None:
+                    x = x.to(self.compute_dtype)
+                acts, extras = self.get_group_activations(
+                    x, training=training, generator=generator, **kwargs)
+                acts = acts.float()  # selection stays fp32
+            with annotate("canon/select_element"):
+                element, onehot = self.groupactivations_to_groupelement(
+                    acts, training, generator)
+            with annotate("canon/warp"):
+                if element.reflection is not None:
+                    r = element.reflection[:, None, None, None].to(x.dtype)
+                    x = (1.0 - r) * x + r * hflip(x)
+                n = self.num_rotations
+                rot_onehot = (
+                    onehot[:, :n] + onehot[:, n:]
+                    if self.group_type == "roto-reflection" else onehot
+                )
+                if training:
+                    x = rotate_discrete(x, rot_onehot.to(x.dtype), n, -1.0,
+                                        self.padding_mode, self.warp_mode)
+                else:
+                    idx = torch.argmax(rot_onehot, dim=-1)
+                    x = rotate_select(x, idx, n, -1.0, self.padding_mode,
+                                      self.warp_mode)
+                if self.output_dtype != "compute":
+                    x = x.to(in_dtype)
+            info = DiscreteCanonicalizationInfo(
+                group_activations=acts,
+                onehot=onehot,
+                element=element,
+                num_rotations=self.num_rotations,
+                group_type=self.group_type,
+                extras=extras,
+            )
+            if targets is not None:
+                return x, self._canonicalize_targets(
+                    targets, element, rot_onehot, x.shape[2], training), info
+            return x, info
 
     def _canonicalize_targets(self, targets: Dict[str, Tensor],
                               element: DiscreteGroupElement, rot_onehot: Tensor,
@@ -242,21 +255,22 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         training=True the rotation one-hot of the info (the reflection coset
         collapsed onto it) carries the gradient to the selection; the fiber
         roll stays hard, as in the JAX package."""
-        rotation_onehot = None
-        if training:
-            oh, n = info.onehot, info.num_rotations
-            rotation_onehot = oh[:, :n] + oh[:, n:] if oh.shape[-1] == 2 * n else oh
-            rotation_onehot = rotation_onehot.to(x_canonicalized_out.dtype)
-        return get_action_on_image_features(
-            x_canonicalized_out,
-            num_rotations=info.num_rotations,
-            num_group=info.num_group,
-            rotation_deg=info.element.rotation_deg,
-            reflection=info.element.reflection,
-            induced_rep_type=induced_rep_type,
-            rotation_onehot=rotation_onehot,
-            mode=self.warp_mode,
-        )
+        with annotate("canon/invert"):
+            rotation_onehot = None
+            if training:
+                oh, n = info.onehot, info.num_rotations
+                rotation_onehot = oh[:, :n] + oh[:, n:] if oh.shape[-1] == 2 * n else oh
+                rotation_onehot = rotation_onehot.to(x_canonicalized_out.dtype)
+            return get_action_on_image_features(
+                x_canonicalized_out,
+                num_rotations=info.num_rotations,
+                num_group=info.num_group,
+                rotation_deg=info.element.rotation_deg,
+                reflection=info.element.reflection,
+                induced_rep_type=induced_rep_type,
+                rotation_onehot=rotation_onehot,
+                mode=self.warp_mode,
+            )
 
 
 class GroupEquivariantImageCanonicalization(DiscreteGroupImageCanonicalization):

@@ -38,6 +38,7 @@ import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from equiadapt_tpu_torch.common.layers import BatchShard, batch_shard
+from equiadapt_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "init_distributed",
@@ -308,31 +309,32 @@ def grad_sync(mesh, axis_name: str = "data") -> Callable[[Any], None]:
     data_group = mesh.get_group(axis_name)
 
     def sync(model) -> None:
-        buckets: Dict[Tuple[Any, torch.dtype], List[torch.nn.Parameter]] = {}
-        for p in model.parameters():
-            if not p.requires_grad or isinstance(p, torch.distributed.tensor.DTensor):
-                continue
-            group = data_group if getattr(p, "tp_shard", None) is not None else None
-            buckets.setdefault((group, p.dtype), []).append(p)
-        for (group, dtype), params in buckets.items():
-            n = dist.get_world_size(group)
-            present = [p.grad is not None for p in params]
-            dev = params[0].device
-            flags = (torch.ones(len(params), dtype=dtype, device=dev) if all(present)
-                     else torch.tensor(present, dtype=dtype, device=dev))
-            flat = torch.cat(
-                [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                 for p in params] + [flags])
-            dist.all_reduce(flat, group=group)
-            if n > 1:
-                flat.div_(n)
-            # every rank took some gradient where this one did; read the
-            # counts (a host sync) only where this one took none
-            has = [True] * len(params) if all(present) else (flat[-len(params):] > 0).tolist()
-            off = 0
-            for p, h in zip(params, has):
-                p.grad = flat[off:off + p.numel()].view_as(p) if h else None
-                off += p.numel()
+        with annotate("dist/grad_sync"):
+            buckets: Dict[Tuple[Any, torch.dtype], List[torch.nn.Parameter]] = {}
+            for p in model.parameters():
+                if not p.requires_grad or isinstance(p, torch.distributed.tensor.DTensor):
+                    continue
+                group = data_group if getattr(p, "tp_shard", None) is not None else None
+                buckets.setdefault((group, p.dtype), []).append(p)
+            for (group, dtype), params in buckets.items():
+                n = dist.get_world_size(group)
+                present = [p.grad is not None for p in params]
+                dev = params[0].device
+                flags = (torch.ones(len(params), dtype=dtype, device=dev) if all(present)
+                         else torch.tensor(present, dtype=dtype, device=dev))
+                flat = torch.cat(
+                    [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                     for p in params] + [flags])
+                dist.all_reduce(flat, group=group)
+                if n > 1:
+                    flat.div_(n)
+                # every rank took some gradient where this one did; read the
+                # counts (a host sync) only where this one took none
+                has = [True] * len(params) if all(present) else (flat[-len(params):] > 0).tolist()
+                off = 0
+                for p, h in zip(params, has):
+                    p.grad = flat[off:off + p.numel()].view_as(p) if h else None
+                    off += p.numel()
 
     return sync
 

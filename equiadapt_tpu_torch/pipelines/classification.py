@@ -48,6 +48,7 @@ from equiadapt_tpu_torch.images.canonicalization.discrete_group import (
     optimization_specific_loss,
 )
 from equiadapt_tpu_torch.ops.kernels.orbit import materialize_orbit
+from equiadapt_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -86,18 +87,20 @@ class ImageClassifierPipeline(nn.Module):
 
     def forward(self, x: Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None):
-        kw = {} if generator is None else {"generator": generator}
-        x = to_network_layout(x, self.prediction_network)
-        x_canon, info = self.canonicalizer(x, training=training, **kw)
-        if not training:
-            return self.prediction_network(x_canon), info
-        net = self.prediction_network
-        if not self.remat:
-            return net(x_canon, training=True), info
-        logits = checkpoint(
-            lambda xc: net(xc, training=True), x_canon, use_reentrant=False,
-            context_fn=lambda: (contextlib.nullcontext(), frozen_batch_stats(net)))
-        return logits, info
+        with annotate("pipeline"):
+            kw = {} if generator is None else {"generator": generator}
+            x = to_network_layout(x, self.prediction_network)
+            x_canon, info = self.canonicalizer(x, training=training, **kw)
+            with annotate("predict"):
+                if not training:
+                    return self.prediction_network(x_canon), info
+                net = self.prediction_network
+                if not self.remat:
+                    return net(x_canon, training=True), info
+                logits = checkpoint(
+                    lambda xc: net(xc, training=True), x_canon, use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(), frozen_batch_stats(net)))
+                return logits, info
 
     def invert(self, info, y: Tensor, **kw: Any) -> Tensor:
         return self.canonicalizer.invert_canonicalization(info, y, **kw)
@@ -256,35 +259,43 @@ def make_train_step(loss_kwargs: Dict[str, Any], watch_gradients: bool = False):
     One forward in training mode (BatchNorm statistics updated, dropout
     masks and Gumbel noise drawn from `generator`), `classification_loss`,
     the backward pass and one optimizer step; the state is updated in
-    place and returned. watch_gradients=True adds `grad/<subtree>/norm`
+    place and returned. Its spans: `train/step` around the call, with
+    `train/forward`, `train/loss`, `train/backward` (the gradients' sync
+    over the ranks included) and `train/optimizer` under it
+    (`utils.profiling`). watch_gradients=True adds `grad/<subtree>/norm`
     for each top-level module and `grad/global_norm` (of the reduced
     gradients under `parallel.data_parallel_jit`)."""
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    generator: Optional[torch.Generator] = None):
-        model = state.model
-        for opt in state.optimizers:
-            opt.zero_grad(set_to_none=True)
-        logits, info = model(batch["image"], training=True, generator=generator)
-        loss, metrics = classification_loss(logits, batch["label"], info,
-                                            **loss_kwargs)
-        loss.backward()
-        state.sync_gradients()
-        if watch_gradients:
-            total = torch.zeros((), device=loss.device)
-            for name, child in model.named_children():
-                sq = torch.zeros((), device=loss.device)
-                for p in child.parameters():
-                    if p.grad is not None:
-                        g = p.grad
-                        if hasattr(g, "full_tensor"):  # an FSDP-sharded gradient
-                            g = g.full_tensor()
-                        sq = sq + torch.sum(torch.square(g.float()))
-                metrics[f"grad/{name}/norm"] = torch.sqrt(sq)
-                total = total + sq
-            metrics["grad/global_norm"] = torch.sqrt(total)
-        state.apply_gradients()
-        return state, {k: v.detach() for k, v in metrics.items()}
+        with annotate("train/step"):
+            model = state.model
+            for opt in state.optimizers:
+                opt.zero_grad(set_to_none=True)
+            with annotate("train/forward"):
+                logits, info = model(batch["image"], training=True, generator=generator)
+            with annotate("train/loss"):
+                loss, metrics = classification_loss(logits, batch["label"], info,
+                                                    **loss_kwargs)
+            with annotate("train/backward"):
+                loss.backward()
+                state.sync_gradients()
+            if watch_gradients:
+                total = torch.zeros((), device=loss.device)
+                for name, child in model.named_children():
+                    sq = torch.zeros((), device=loss.device)
+                    for p in child.parameters():
+                        if p.grad is not None:
+                            g = p.grad
+                            if hasattr(g, "full_tensor"):  # an FSDP-sharded gradient
+                                g = g.full_tensor()
+                            sq = sq + torch.sum(torch.square(g.float()))
+                    metrics[f"grad/{name}/norm"] = torch.sqrt(sq)
+                    total = total + sq
+                metrics["grad/global_norm"] = torch.sqrt(total)
+            with annotate("train/optimizer"):
+                state.apply_gradients()
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
 

@@ -109,7 +109,8 @@ class ExperimentConfig:
     loss: TrainingLossConfig = field(default_factory=TrainingLossConfig)
     inference_method: str = "vanilla"  # vanilla | group
     num_group_elements_for_inference: int = 4
-    # profiler trace of the first training steps (utils/profiling.py)
+    # profiler trace of the first training steps or of the serving CLI's
+    # timed batches, with the spans report (utils/profiling.py)
     profile: bool = False
     profile_dir: str = "/tmp/eqt_profile"
     # per-subtree gradient norms in the step metrics — the reference's
