@@ -17,6 +17,17 @@ not with its product with the number of coefficients. Then one
 `F.conv2d` runs on NCHW with OIHW weights. Takes NHWC like the JAX module,
 runs NCHW inside.
 
+Serving keeps the host out of the card's way. With grad mode off
+(`torch.no_grad()`, `torch.inference_mode()`) a `SteerableConv` assembles
+its kernel once per weight change and reuses it, already cast to the
+input's dtype, while every coefficient leaf is the same tensor with the
+same storage pointer and version counter, on the input's device and dtype
+(counters `steerable/kernel_cache_hit` and `..._miss` in
+`utils.profiling.counters()`). With grad mode on it assembles the kernel
+on every call, so autograd sees it, and drops what it kept.
+`NormNonlinearity` indexes with tensors kept on the module's device, so no
+call copies an index from the host or waits for the card.
+
 Dtypes follow the JAX module: a convolution runs in its input's dtype
 (fp32 parameters cast), and `NormBatchNorm` multiplies by its fp32 scale,
 which promotes a bf16 input to fp32. So with bf16 input only the first
@@ -31,7 +42,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+import operator
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from equiadapt_tpu_torch.common.layers import global_mean, stats_shard
+from equiadapt_tpu_torch.utils.profiling import count
 
 Tensor = torch.Tensor
 
@@ -136,10 +149,35 @@ def _assembly_plan(in_orders: Tuple[int, ...], out_orders: Tuple[int, ...],
     return index, weights
 
 
+class _KernelCache(NamedTuple):
+    """An assembled kernel and the leaves it was assembled from."""
+
+    kernel: Tensor
+    leaves: List[Tensor]
+    storages: list  # held so that no new leaf storage can take a freed address
+    pointers: List[int]
+    versions: List[int]
+
+
 class SteerableConv(nn.Module):
     """Equivariant convolution between collections of SO(2) fields, on
     NCHW tensors. Parameters `w_{fo}_{fi}` (J, 2) as in Flax; `kernel()`
-    assembles the OIHW kernel from them (`_assembly_plan`)."""
+    assembles the OIHW kernel from them (`_assembly_plan`).
+
+    With grad mode on, `forward` assembles the kernel on every call and
+    drops any kept one. With grad mode off it keeps the kernel, cast to the
+    input's dtype, and reuses it while each leaf is the same tensor with the
+    same `data_ptr()` and `_version` and the input's device and dtype match;
+    any other call assembles it anew (the same operations, so the same
+    values) and keeps that. So an in-place write (a copy, an optimizer
+    step), `p.data = ...`, `load_state_dict(assign=True)` or `.to()` is seen;
+    a write that bypasses the version counter (an in-place write through
+    `p.data`; FSDP2's all-gather into its unsharded parameters) is seen only
+    through the next grad-on call. Traced calls (`torch.compile`,
+    `torch.export`, tensor subclasses) assemble and keep nothing. Copies and
+    pickles of the module start without the kept kernel."""
+
+    _cache: Optional[_KernelCache] = None
 
     def __init__(self, in_orders: Sequence[int], out_orders: Sequence[int],
                  kernel_size: int, stride: int = 1, padding: int = 0, device="cuda",
@@ -174,7 +212,36 @@ class SteerableConv(nn.Module):
         return torch.einsum("pt,ptq->pq", theta[self._index], self._weights).reshape(
             _field_channels(self.out_orders), _field_channels(self.in_orders), K, K)
 
+    def __getstate__(self):
+        state = super().__getstate__()
+        state.pop("_cache", None)
+        return state
+
+    def _kept_kernel(self, x: Tensor) -> Tensor:
+        """The kernel in x's dtype, reused while the leaves are unchanged."""
+        params = self._parameters
+        leaves = [params[n] for n in self._names]
+        pointers = list(map(Tensor.data_ptr, leaves))
+        versions = [p._version for p in leaves]
+        kept = self._cache
+        if (kept is not None and kept.kernel.dtype == x.dtype
+                and kept.kernel.device == x.device and pointers == kept.pointers
+                and versions == kept.versions
+                and all(map(operator.is_, leaves, kept.leaves))):
+            count("steerable/kernel_cache_hit")
+            return kept.kernel
+        count("steerable/kernel_cache_miss")
+        kernel = self.kernel().to(x.dtype)
+        self._cache = _KernelCache(kernel, leaves, [p.untyped_storage() for p in leaves],
+                                   pointers, versions)
+        return kernel
+
     def forward(self, x: Tensor) -> Tensor:
+        if torch.is_grad_enabled():
+            self._cache = None
+        elif type(x) is Tensor and not torch.compiler.is_compiling():
+            return F.conv2d(x, self._kept_kernel(x), stride=self.stride,
+                            padding=self.padding)
         return F.conv2d(x, self.kernel().to(x.dtype), stride=self.stride,
                         padding=self.padding)
 
@@ -182,7 +249,9 @@ class SteerableConv(nn.Module):
 class NormNonlinearity(nn.Module):
     """Phase-preserving norm-ReLU, relu(|z| + b) z / |z|, for m != 0
     fields (parameters `bias_{fi}` (1,)); tanh-approximate GELU, which is
-    Flax's `nn.gelu`, for m = 0 fields. NCHW."""
+    Flax's `nn.gelu`, for m = 0 fields. NCHW. The channel indices
+    (`_scalar`, `_re`, `_im`, `_order`) are int64 buffers on the module's
+    device, outside the `state_dict`, so indexing makes no host copy."""
 
     def __init__(self, orders: Sequence[int], device="cuda"):
         super().__init__()
@@ -201,13 +270,17 @@ class NormNonlinearity(nn.Module):
                     name, nn.Parameter(torch.zeros(1, device=device)))
                 self._bias_names.append(name)
                 ci += 2
-        self._scalar, self._re, self._im = scalar, re, im
         # channel c of cat([scalar, re, im]) back to its place
-        self._order = list(np.argsort(scalar + re + im))
+        order = np.argsort(scalar + re + im)
+        for name, index in (("_scalar", scalar), ("_re", re), ("_im", im),
+                            ("_order", order)):
+            self.register_buffer(
+                name, torch.as_tensor(index, dtype=torch.int64).to(device),
+                persistent=False)
 
     def forward(self, x: Tensor) -> Tensor:
         parts = [F.gelu(x[:, self._scalar], approximate="tanh")]
-        if self._re:
+        if self._bias_names:
             z_re, z_im = x[:, self._re], x[:, self._im]
             norm = torch.sqrt(z_re * z_re + z_im * z_im + 1e-8)
             b = torch.cat([getattr(self, n) for n in self._bias_names])

@@ -42,7 +42,9 @@ when the recorder next sees the profiler off (at a span, a sync or
 milliseconds and host syncs a call.
 
 **Counters.** `count(name, n)` adds to a process-wide counter (host syncs
-by span are counted there too); `counters()` returns it with the kernel
+by span are counted there too, and `steerable/kernel_cache_hit` /
+`steerable/kernel_cache_miss`, each grad-off call of a `SteerableConv`
+that reused or assembled its kernel); `counters()` returns it with the kernel
 modules' launch counters (`launches/<wrapper>/<dtype>` and
 `paths/<wrapper>/<dtype>/<path>`).
 
