@@ -1,0 +1,10 @@
+"""Mean device milliseconds a served batch inside the program's
+`canon/warp` span: the quarter turn of the 1024 px bf16 images by the
+select kernel K3, and of the box prompts, between the span's two CUDA
+events."""
+
+from benchmark.harness.spans import span_figure
+
+
+def read(record):
+    return span_figure(record, "segment", "canon/warp", "device_ms")

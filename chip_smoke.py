@@ -281,7 +281,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the CPU with phase 12's bars (raised to three times the CPU's own
    spread where larger); the segmentation CLI as the JAX one cuts it,
    train one epoch then test from the checkpoint, each run counted and
-   its first K3 launches checked again;
+   its first K3 launches checked again; then the SAM ViT-B serving path
+   (`cli.segmentation_serve`, the benchmark's `sam-vitb-c4.segment`
+   cell: bf16 at 1024 px, 8 box prompts an image): K1a on (8, 8, 1024,
+   1024) fp32 mask planes (word path) and K3 on (8, 1024, 1024, 3) bf16
+   images (tile path), each bit-equal to a `torch.gather` of the same
+   permutation on the same inputs (NaN payload and -0.0 included), and
+   one `serve` call counted (launch counts zeroed just before it and read
+   after it: K3 once on the images, K1a once on the mask logits, their
+   paths asserted, each first launch checked again on a copy of its
+   inputs);
 22. item 15 (the rest of the harness): (a) BASELINE config 1's training
    CLI with `prediction.pretrained=true` on a random torchvision-layout
    ResNet-50 `.pth` (one epoch, then test mode from its checkpoint, each
@@ -475,6 +484,9 @@ PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {"bfloat16": 989.4e12, "float32": 66.9e12
 # with the 256-wide decoder, and 12 does not divide 256); the train step at
 # batch 4; the step against the CPU at encoder depth 2, 256 px, batch 2
 SEG_B, SEG_IMAGE, SEG_PROMPTS, SEG_HEADS, SEG_TRAIN_B = 8, 1024, 4, 8, 4
+# the SAM ViT-B serving path's box prompts an image (cli.segmentation_serve,
+# the benchmark's sam-vitb-c4.segment cell)
+SEG_SERVE_PROMPTS = 8
 SEG_CPU_B, SEG_CPU_IMAGE = 2, 256
 SEG_CONFIG = os.path.join("examples", "images", "segmentation", "configs", "default.yaml")
 # phase 22, item 15: the pretrained CLI run (config 1, a random torchvision
@@ -4171,6 +4183,67 @@ def seg_cli_phase(sw, src_log):
             "test_metrics": metrics}
 
 
+def seg_serve_phase(tp, sw, src_log, size=None):
+    """SAM ViT-B served behind the C4 canonicalizer as
+    `cli.segmentation_serve` builds it (bf16, fast warps, SEG_B images of
+    `size` px, SEG_SERVE_PROMPTS boxes an image): K1a on the shape of its
+    mask logits ((SEG_B, SEG_SERVE_PROMPTS, size, size) fp32, word path)
+    and K3 on its images' ((SEG_B, size, size, 3) bf16, tile path), each
+    bit-equal to one torch.gather of the same permutation on the same
+    inputs (a NaN payload and a -0.0 included); then one `serve` call,
+    counted: one K3 launch on the images and one K1a launch on the mask
+    logits, by those paths, each again on a copy of its inputs against the
+    plain version."""
+    from equiadapt_tpu_torch.cli import segmentation_serve as cli
+
+    size = size or SEG_IMAGE
+    gen = torch.Generator(device=DEVICE).manual_seed(79)
+    k = torch.randint(0, 4, (SEG_B,), generator=gen, device=DEVICE).int()
+    src = torch.zeros_like(k)
+    cases = {"select_planes": ((SEG_B, SEG_SERVE_PROMPTS, size, size), torch.float32, "word"),
+             "select_planes_nhwc": ((SEG_B, size, size, 3), torch.bfloat16, "tile")}
+    out = {"kernels": {}}
+    for name, (shape, dtype, expect) in cases.items():
+        tag = str(dtype).removeprefix("torch.")
+        x = with_payloads(torch.randn(*shape, generator=gen, device=DEVICE).to(dtype))
+        sw.reset_launches()
+        got = kernel_call(sw, name, [x], src, k, None)
+        sync()
+        assert dict(sw.path_launches) == {f"{name}/{tag}/{expect}": 1}, sw.path_launches
+        idx = plain_call(sw, name, [torch.arange(x.numel(), device=DEVICE).view(shape)],
+                         src, k, None)
+        want = torch.gather(x.reshape(-1), 0, idx.reshape(-1)).view_as(got)
+        assert torch.equal(orbit_bits(got), orbit_bits(want)), (name, tag)
+        out["kernels"][name] = {"shape": list(shape), "dtype": tag, "path": expect}
+        del x, got, idx, want
+    sw.reset_launches()
+    cfg = tp.compose_config(cli.DEFAULTS + [f"dataset.image_size={size}"],
+                            config_dir=cli.CONFIG_DIR)
+    pipe = cli.build_serving_pipeline(cfg, DEVICE)
+    batch = tp.synthetic_coco_batch(torch.Generator(device=DEVICE).manual_seed(80), SEG_B,
+                                    image_size=size, num_prompts=SEG_SERVE_PROMPTS)
+    with torch.no_grad():
+        (masks, ious, info), counts = counted(
+            (sw,), src_log, "segmentation_serve",
+            lambda: pipe.serve(batch["image"], batch["targets"]["boxes"]))
+    log(f"segmentation serve: launches {counts['launches']}, paths {counts['paths']}")
+    assert counts["launches"] == {"select_planes_nhwc/bfloat16": 1,
+                                  "select_planes/float32": 1}, counts
+    assert counts["paths"] == {"select_planes_nhwc/bfloat16/tile": 1,
+                               "select_planes/float32/word": 1}, counts
+    assert counts["select_sources"] == {"select_planes/float32,1 source": 1}, counts
+    assert {row["kernel"] for row in counts["checked"]} == {
+        "select_planes_nhwc[bfloat16]", "select_planes[float32,1 source]"}, counts
+    assert masks.shape == (SEG_B, SEG_SERVE_PROMPTS, size, size), masks.shape
+    assert masks.dtype == torch.float32 and ious.shape == (SEG_B, SEG_SERVE_PROMPTS)
+    for t in (masks, ious, info.group_activations):
+        assert bool(torch.isfinite(t).all())
+    out.update(counts)
+    del pipe, batch, masks, ious, info
+    torch.cuda.empty_cache()
+    return out
+
+
 def segmentation_phase(tp, sw, src_log, bwidth):
     """Phase 21: BASELINE config 5 at full width (see the module docstring)."""
     out = {"kernels": seg_kernel_rows(sw, bwidth)}
@@ -4220,6 +4293,7 @@ def segmentation_phase(tp, sw, src_log, bwidth):
         log(f"segmentation train: {json.dumps(out['train'])}")
         out["train_vs_cpu"] = seg_step_vs_cpu(tp)
         out["cli"] = seg_cli_phase(sw, src_log)
+    out["serve"] = seg_serve_phase(tp, sw, src_log)
     log(f"segmentation times: {json.dumps(out['times'])}")
     return out
 
@@ -5635,6 +5709,9 @@ def main() -> int:
                              for k, v in row["launches"].items()})
             add_paths(row["paths"])
         add_paths(seg["paths"])
+        launches.update({f"segmentation_serve:{k}": v
+                         for k, v in seg["serve"]["launches"].items()})
+        add_paths(seg["serve"]["paths"])
         # item 15 (phase 22): pretrained weights, export, the native loader,
         # MaskRCNNLite
         times["item15"] = it15 = item15_phase(tp, sw, orb, kn, src_log, (sw, sr, bw, kn, orb))
@@ -5733,6 +5810,7 @@ def main() -> int:
         cli_checked = [row for run in cli_runs.values() for row in run["checked"]]
         cli_checked += [row for run in pc_train["cli"].values() for row in run["checked"]]
         cli_checked += [row for run in ("train", "test") for row in seg["cli"][run]["checked"]]
+        cli_checked += seg["serve"]["checked"]
         cli_checked += pre["train"]["checked"] + pre["test_counts"]["checked"]
         cli_checked += [row for run in par_runs.values() for row in run["checked"]]
         cli_checked += [row for name in TUTORIALS for row in tut[name]["checked"]]

@@ -1,5 +1,5 @@
 """Command-line entry points of the port (`python -m equiadapt_tpu_torch.cli.<name>`):
-`classification_train`, `classification_serve`, `nbody_train`,
+`classification_train`, `classification_serve`, `segmentation_serve`, `nbody_train`,
 `pointcloud_train`, `partseg_train`, `segmentation_train` and
 `maskrcnn_lite_experiment`."""
 

@@ -22,6 +22,9 @@ torch module mode (`.train()` / `.eval()`).
 * `Dropout` draws its keep mask from an explicit `torch.Generator` (as
   Flax draws from its "dropout" rng) and scales the kept values by
   1 / (1 - rate); `F.dropout` takes no generator.
+* `CastLinear`, `CastConv2d`, `CastConvTranspose2d` and `CastLayerNorm`
+  compute in their input's dtype: fp32 parameters cast on every call, as
+  Flax's `param_dtype` / `dtype` split (a bf16 model keeps fp32 weights).
 
 Batches split over ranks (`parallel/`): inside `batch_shard(shard)` this
 rank holds the rows `shard.rows` of a global batch of `shard.size` rows.
@@ -56,6 +59,7 @@ from equiadapt_tpu_torch.utils.profiling import annotate
 Tensor = torch.Tensor
 
 __all__ = ["BatchNorm", "Dropout", "frozen_batch_stats", "BatchShard",
+           "CastLinear", "CastConv2d", "CastConvTranspose2d", "CastLayerNorm",
            "batch_shard", "current_shard", "orbit_shard", "sharded_draw",
            "all_reduce_sum", "all_gather_rows", "global_mean", "stats_shard"]
 
@@ -367,3 +371,39 @@ class Dropout(nn.Module):
             keep = keep.index_select(-1, self.feature_index.to(x.device))
         keep = keep.bool()
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def _cast(t: Optional[Tensor], x: Tensor) -> Optional[Tensor]:
+    return None if t is None else t.to(x.dtype)
+
+
+class CastLinear(nn.Linear):
+    """Linear that computes in its input's dtype (weights cast per call)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.linear(x, _cast(self.weight, x), _cast(self.bias, x))
+
+
+class CastConv2d(nn.Conv2d):
+    """Conv2d that computes in its input's dtype (weights cast per call)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self._conv_forward(x, _cast(self.weight, x), _cast(self.bias, x))
+
+
+class CastConvTranspose2d(nn.ConvTranspose2d):
+    """ConvTranspose2d that computes in its input's dtype (weights cast per
+    call)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.conv_transpose2d(x, _cast(self.weight, x), _cast(self.bias, x),
+                                  self.stride, self.padding)
+
+
+class CastLayerNorm(nn.LayerNorm):
+    """LayerNorm with its weights cast per call to its input's dtype (the
+    CUDA kernel takes one dtype; the statistics are fp32 either way)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.layer_norm(x, self.normalized_shape, _cast(self.weight, x),
+                            _cast(self.bias, x), self.eps)

@@ -32,10 +32,11 @@ back) under it; `canon/invert` around the invert.
 `training` is an argument, as in the JAX package; the module mode is not
 read. Random draws (dropout masks, Gumbel noise, the optimized variant's
 artifact rotations) come from the `generator` given to `canonicalize`.
-With `targets` (boxes (B, N, 4) and masks (B, N, H, W)), `canonicalize`
-returns `(x_canon, targets_canon, info)`: the boxes and masks take the
-selected element too, the masks in eval through K1 (their (B, H, W, N)
-view of NCHW memory), in training through the `rotate_discrete` blend.
+With `targets` (boxes (B, N, 4) and, optionally, masks (B, N, H, W)),
+`canonicalize` returns `(x_canon, targets_canon, info)`: the boxes and
+masks take the selected element too, the masks in eval through K1 (their
+(B, H, W, N) view of NCHW memory), in training through the
+`rotate_discrete` blend.
 The optimized variant's `orbit_sharding` splits its orbit batch over a
 (data, group) mesh of ranks (`parallel.make_mesh_group`). The JAX
 package's NCHW-spine serving branch is a TPU layout path with no
@@ -177,12 +178,15 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
         select kernels. Further keyword arguments go to the subclass's
         `get_group_activations`.
 
-        With `targets` (a dict with "boxes" (B, N, 4) xyxy and "masks"
-        (B, N, H, W)) returns `(x_canon, targets_canon, info)`: the boxes
-        and masks blended with their flips by the reflection indicator
-        (D_n), the boxes rotated with the element's angle and re-aligned,
-        the masks rotated as the image is, with zeros fill (eval: K1 on
-        their view of NCHW memory; training: the one-hot blend)."""
+        With `targets` (a dict with "boxes" (B, N, 4) xyxy and, optionally,
+        "masks" (B, N, H, W)) returns `(x_canon, targets_canon, info)`: the
+        boxes and masks blended with their flips by the reflection
+        indicator (D_n), the boxes rotated with the element's angle and
+        re-aligned, the masks rotated as the image is, with zeros fill
+        (eval: K1 on their view of NCHW memory; training: the one-hot
+        blend). Targets without masks (a served request's box prompts) come
+        back with their boxes canonicalized; targets without boxes raise
+        `KeyError`."""
         with annotate("canon"):
             in_dtype = x.dtype
             with annotate("canon/get_group_activations"):
@@ -228,14 +232,19 @@ class DiscreteGroupImageCanonicalization(BaseCanonicalization):
     def _canonicalize_targets(self, targets: Dict[str, Tensor],
                               element: DiscreteGroupElement, rot_onehot: Tensor,
                               width: int, training: bool) -> Dict[str, Tensor]:
-        boxes, masks = targets["boxes"], targets["masks"]
+        boxes, masks = targets["boxes"], targets.get("masks")
+        if boxes is None:  # {"boxes": None}, as the masks may be left out
+            raise KeyError("targets need 'boxes'")
         if element.reflection is not None:
             r = element.reflection
             boxes = ((1.0 - r[:, None, None]) * boxes
                      + r[:, None, None] * flip_boxes(boxes, width))
-            masks = ((1.0 - r[:, None, None, None]) * masks
-                     + r[:, None, None, None] * flip_masks(masks))
+            if masks is not None:
+                masks = ((1.0 - r[:, None, None, None]) * masks
+                         + r[:, None, None, None] * flip_masks(masks))
         boxes = rotate_boxes(boxes, element.rotation_deg, width)
+        if masks is None:  # a served request: box prompts, no masks
+            return {**targets, "boxes": boxes}
         n = self.num_rotations
         masks_nhwc = masks.movedim(1, -1)  # (B, H, W, N), a view of NCHW memory
         if training:

@@ -29,6 +29,7 @@ from equiadapt_tpu_torch.models.sam_convert import (
     convert_sam_checkpoint,
     convert_sam_vit_encoder,
 )
+from equiadapt_tpu_torch.models.sam import SamModel, sam_vit_b_kwargs
 from equiadapt_tpu_torch.models.sam_encoder import SamVitEncoder, sam_vit_b_encoder_kwargs
 from equiadapt_tpu_torch.models.segmentation import (
     ImageEncoderLite,
@@ -58,7 +59,8 @@ __all__ = ["MaskRCNNLite", "maskrcnn_lite_loss", "decode_boxes",
            "edge_attributes", "positional_encoding",
            "DGCNN", "DGCNNPartSeg", "PointNet", "TransformNet", "get_graph_feature", "BasicBlock", "Bottleneck",
            "ResNet", "ResNet18", "ResNet50", "WideResNet50", "WideResNet101",
-           "convert_sam_checkpoint", "convert_sam_vit_encoder", "SamVitEncoder",
+           "convert_sam_checkpoint", "convert_sam_vit_encoder", "SamModel", "sam_vit_b_kwargs",
+           "SamVitEncoder",
            "sam_vit_b_encoder_kwargs", "ImageEncoderLite", "MaskDecoderLite",
            "PromptEncoderLite", "SAMLite", "calc_iou", "dice_loss", "focal_loss",
            "segmentation_forward_outputs", "EncoderBlock", "ViT", "ViTB16"]

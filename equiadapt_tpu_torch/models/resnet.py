@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from equiadapt_tpu_torch.common.layers import BatchNorm
+from equiadapt_tpu_torch.common.layers import BatchNorm, CastConv2d, CastLinear
 
 Tensor = torch.Tensor
 
@@ -37,34 +37,20 @@ def _bn(ch: int, device) -> BatchNorm:
     return BatchNorm(ch, momentum=0.99, epsilon=1e-5, device=device)
 
 
-class _Conv(nn.Conv2d):
-    """Conv2d that computes in its input's dtype (weights cast per call)."""
-
-    def forward(self, x: Tensor) -> Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
-
-
-class _Dense(nn.Linear):
-    """Linear that computes in its input's dtype (weights cast per call)."""
-
-    def forward(self, x: Tensor) -> Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
-
-
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_ch: int, filters: int, stride: int = 1, device="cuda"):
         super().__init__()
-        self.Conv_0 = _Conv(in_ch, filters, 3, stride, 1, bias=False,
+        self.Conv_0 = CastConv2d(in_ch, filters, 3, stride, 1, bias=False,
                                 device=device)
         self.BatchNorm_0 = _bn(filters, device)
-        self.Conv_1 = _Conv(filters, filters, 3, 1, 1, bias=False,
+        self.Conv_1 = CastConv2d(filters, filters, 3, 1, 1, bias=False,
                                 device=device)
         self.BatchNorm_1 = _bn(filters, device)
         self.project = stride != 1 or in_ch != filters
         if self.project:
-            self.Conv_2 = _Conv(in_ch, filters, 1, stride, bias=False,
+            self.Conv_2 = CastConv2d(in_ch, filters, 1, stride, bias=False,
                                     device=device)
             self.BatchNorm_2 = _bn(filters, device)
 
@@ -84,16 +70,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         width = filters * width_mult
         out_ch = filters * 4
-        self.Conv_0 = _Conv(in_ch, width, 1, bias=False, device=device)
+        self.Conv_0 = CastConv2d(in_ch, width, 1, bias=False, device=device)
         self.BatchNorm_0 = _bn(width, device)
-        self.Conv_1 = _Conv(width, width, 3, stride, 1, bias=False,
+        self.Conv_1 = CastConv2d(width, width, 3, stride, 1, bias=False,
                                 device=device)
         self.BatchNorm_1 = _bn(width, device)
-        self.Conv_2 = _Conv(width, out_ch, 1, bias=False, device=device)
+        self.Conv_2 = CastConv2d(width, out_ch, 1, bias=False, device=device)
         self.BatchNorm_2 = _bn(out_ch, device)
         self.project = stride != 1 or in_ch != out_ch
         if self.project:
-            self.Conv_3 = _Conv(in_ch, out_ch, 1, stride, bias=False,
+            self.Conv_3 = CastConv2d(in_ch, out_ch, 1, stride, bias=False,
                                     device=device)
             self.BatchNorm_3 = _bn(out_ch, device)
 
@@ -127,9 +113,9 @@ class ResNet(nn.Module):
         self.return_stages = return_stages
         self.dtype = dtype
         if small_images:
-            self.Conv_0 = _Conv(3, 64, 3, 1, 1, bias=False, device=device)
+            self.Conv_0 = CastConv2d(3, 64, 3, 1, 1, bias=False, device=device)
         else:
-            self.Conv_0 = _Conv(3, 64, 7, 2, 3, bias=False, device=device)
+            self.Conv_0 = CastConv2d(3, 64, 7, 2, 3, bias=False, device=device)
         self.BatchNorm_0 = _bn(64, device)
         base = block.func if isinstance(block, partial) else block
         self._stages = []
@@ -146,7 +132,7 @@ class ResNet(nn.Module):
             self._stages.append(names)
             filters *= 2
         self.Dense_0 = (
-            _Dense(in_ch, num_classes, device=device)
+            CastLinear(in_ch, num_classes, device=device)
             if num_classes is not None else None
         )
 

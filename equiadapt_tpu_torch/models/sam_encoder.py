@@ -21,8 +21,21 @@ Parameters are named after SAM's torch tree (`patch_embed.proj`,
 JAX package's Flax names (`patch_embed`, `block{i}`, `lin1`, `neck_conv1`,
 ...) onto them for `utils.jax_weights`.
 
-Attention is written out as products and a softmax in fp32, as in the JAX
-package: a global block at 1024 px holds (B, heads, 4096, 4096) scores.
+Attention is written out as products and a softmax, as in the JAX package:
+a global block at 1024 px holds (B, heads, 4096, 4096) scores, the bias
+added to them in place.
+
+`dtype` is the computation's dtype (fp32 by default, as in the JAX
+package). Parameters stay fp32: under dtype=bfloat16 the linears,
+convolutions, LayerNorms, position embedding and relative-position tables
+are cast per call, the products accumulate in fp32, and the LayerNorms and
+the softmax keep their statistics in fp32 over bf16 activations.
+
+Spans (`utils.profiling.annotate`): `sam/encoder` around the forward, with
+`sam/attn/window` (a windowed block's attention, from partition to
+unpartition), `sam/attn/global` (a global block's attention, its bias
+included) and `sam/neck` inside it. The counter `sam/attn_score_elems`
+adds the score elements each attention call materializes, from the shapes.
 """
 
 from __future__ import annotations
@@ -33,7 +46,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from equiadapt_tpu_torch.common.layers import CastConv2d, CastLayerNorm, CastLinear
 from equiadapt_tpu_torch.ops.warp import resize
+from equiadapt_tpu_torch.utils.profiling import annotate, count
 
 Tensor = torch.Tensor
 
@@ -97,8 +112,8 @@ class SamAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = hd = dim // num_heads
         self.use_rel_pos = use_rel_pos
-        self.qkv = nn.Linear(dim, 3 * dim, device=device)
-        self.proj = nn.Linear(dim, dim, device=device)
+        self.qkv = CastLinear(dim, 3 * dim, device=device)
+        self.proj = CastLinear(dim, dim, device=device)
         if use_rel_pos:
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd,
                                                       device=device))
@@ -119,11 +134,12 @@ class SamAttention(nn.Module):
         qkv = self.qkv(x.reshape(B, H * W, C))
         qkv = qkv.reshape(B, H * W, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, HW, hd)
+        count("sam/attn_score_elems", B * nh * (H * W) ** 2)
         attn = (q * hd ** -0.5) @ k.transpose(-2, -1)  # (B, nh, HW, HW)
         if self.use_rel_pos:
             rel_h, rel_w = self._rel_pos()
-            Rh = _rel_pos_table(H, H, rel_h)  # (H, H, hd)
-            Rw = _rel_pos_table(W, W, rel_w)  # (W, W, hd)
+            Rh = _rel_pos_table(H, H, rel_h).to(q.dtype)  # (H, H, hd)
+            Rw = _rel_pos_table(W, W, rel_w).to(q.dtype)  # (W, W, hd)
             r_q = q.reshape(B, nh, H, W, hd)
             bias_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, Rh)
             bias_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, Rw)
@@ -138,8 +154,8 @@ class SamAttention(nn.Module):
 class _Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, device="cuda"):
         super().__init__()
-        self.lin1 = nn.Linear(dim, hidden, device=device)
-        self.lin2 = nn.Linear(hidden, dim, device=device)
+        self.lin1 = CastLinear(dim, hidden, device=device)
+        self.lin2 = CastLinear(hidden, dim, device=device)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.lin2(F.gelu(self.lin1(x)))  # exact (erf) GELU
@@ -155,12 +171,12 @@ class SamBlock(nn.Module):
                  device="cuda"):
         super().__init__()
         self.window_size = window_size
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6, device=device)
+        self.norm1 = CastLayerNorm(dim, eps=1e-6, device=device)
         self.attn = SamAttention(
             dim, num_heads,
             (window_size, window_size) if window_size > 0 else input_size,
             device=device)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6, device=device)
+        self.norm2 = CastLayerNorm(dim, eps=1e-6, device=device)
         self.mlp = _Mlp(dim, int(dim * mlp_ratio), device=device)
 
     def forward(self, x: Tensor) -> Tensor:
@@ -168,28 +184,33 @@ class SamBlock(nn.Module):
         x = self.norm1(x)
         ws = self.window_size
         if ws > 0:
-            hw = (x.shape[1], x.shape[2])
-            x, pad_hw = _window_partition(x, ws)
-        x = self.attn(x)
-        if ws > 0:
-            x = _window_unpartition(x, ws, pad_hw, hw)
+            with annotate("sam/attn/window"):
+                hw = (x.shape[1], x.shape[2])
+                x, pad_hw = _window_partition(x, ws)
+                x = _window_unpartition(self.attn(x), ws, pad_hw, hw)
+        else:
+            with annotate("sam/attn/global"):
+                x = self.attn(x)
         x = shortcut + x
         return x + self.mlp(self.norm2(x))
 
 
 class SamVitEncoder(nn.Module):
-    """SAM's ViT image encoder: (B, S, S, 3) -> (B, S / p, S / p, out_chans)."""
+    """SAM's ViT image encoder: (B, S, S, 3) -> (B, S / p, S / p, out_chans),
+    computing in `dtype` (module docstring)."""
 
     def __init__(self, img_size: int = 1024, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  out_chans: int = 256, window_size: int = 14,
                  global_attn_indexes: Sequence[int] = (2, 5, 8, 11),
-                 mlp_ratio: float = 4.0, device="cuda"):
+                 mlp_ratio: float = 4.0, device="cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         p = patch_size
         h = img_size // p
+        self.dtype = dtype
         self.patch_embed = nn.Module()
-        self.patch_embed.proj = nn.Conv2d(3, embed_dim, p, stride=p, device=device)
+        self.patch_embed.proj = CastConv2d(3, embed_dim, p, stride=p, device=device)
         self.pos_embed = nn.Parameter(0.02 * torch.randn(1, h, h, embed_dim,
                                                          device=device))
         self.blocks = nn.ModuleList([
@@ -198,10 +219,10 @@ class SamVitEncoder(nn.Module):
                      (h, h), device=device)
             for i in range(depth)])
         self.neck = nn.Sequential(
-            nn.Conv2d(embed_dim, out_chans, 1, bias=False, device=device),
-            nn.LayerNorm(out_chans, eps=1e-6, device=device),
-            nn.Conv2d(out_chans, out_chans, 3, padding=1, bias=False, device=device),
-            nn.LayerNorm(out_chans, eps=1e-6, device=device))
+            CastConv2d(embed_dim, out_chans, 1, bias=False, device=device),
+            CastLayerNorm(out_chans, eps=1e-6, device=device),
+            CastConv2d(out_chans, out_chans, 3, padding=1, bias=False, device=device),
+            CastLayerNorm(out_chans, eps=1e-6, device=device))
         self.flax_aliases = {
             "patch_embed": "patch_embed.proj", "neck_conv1": "neck.0",
             "neck_ln1": "neck.1", "neck_conv2": "neck.2", "neck_ln2": "neck.3",
@@ -209,10 +230,13 @@ class SamVitEncoder(nn.Module):
 
     def forward(self, x: Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> Tensor:
-        x = self.patch_embed.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        x = x + self.pos_embed
-        for block in self.blocks:
-            x = block(x)
-        conv1, ln1, conv2, ln2 = self.neck
-        x = ln1(conv1(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
-        return ln2(conv2(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+        with annotate("sam/encoder"):
+            x = x.to(self.dtype).permute(0, 3, 1, 2)
+            x = self.patch_embed.proj(x).permute(0, 2, 3, 1)
+            x = x + self.pos_embed.to(x.dtype)
+            for block in self.blocks:
+                x = block(x)
+            with annotate("sam/neck"):
+                conv1, ln1, conv2, ln2 = self.neck
+                x = ln1(conv1(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+                return ln2(conv2(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))

@@ -3,12 +3,14 @@ a promptable model, the masks mapped back.
 
 Counterpart of `equiadapt_tpu/pipelines/segmentation.py`. The canonicalizer
 transforms images and targets (boxes, masks) together, batched; the
-promptable model (`models.segmentation.SAMLite`) predicts masks from the
-canonical boxes; `invert_masks` maps predicted masks back to the input
-frame (scalar induced rep: kernel K1 on their view of NCHW memory for a
-discrete canonicalizer). Task loss: 20 focal + dice + MSE of the predicted
-against the achieved IoU; the prior regularization drives the
-canonicalizer (BASELINE config 5, prior weight 100).
+promptable model (`models.segmentation.SAMLite`, or SAM ViT-B,
+`models.sam.SamModel`) predicts masks from the canonical boxes;
+`invert_masks` maps predicted masks back to the input frame (scalar
+induced rep: kernel K1 on their view of NCHW memory for a discrete
+canonicalizer). `serve` is the serving call: images and box prompts in,
+input-frame mask logits and predicted IoU out. Task loss: 20 focal + dice
++ MSE of the predicted against the achieved IoU; the prior regularization
+drives the canonicalizer (BASELINE config 5, prior weight 100).
 
 The train state is the port's `TrainState` with one AdamW over every
 parameter (optax's `adamw(lr)`, weight decay 1e-4, as the JAX CLI builds
@@ -34,6 +36,7 @@ from equiadapt_tpu_torch.models.segmentation import calc_iou, dice_loss, focal_l
 from equiadapt_tpu_torch.ops.boxes import flip_boxes, flip_masks, rotate_boxes, rotate_masks
 from equiadapt_tpu_torch.ops.warp import _residual_rotate, hflip
 from equiadapt_tpu_torch.pipelines.classification import TrainState
+from equiadapt_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -69,6 +72,20 @@ class ImageSegmentationPipeline(nn.Module):
         pred_masks, ious = self.prediction_network(
             images_c, targets_c["boxes"], training=training, generator=generator)
         return (images_c, targets_c, pred_masks, ious), info
+
+    def serve(self, images: Tensor, boxes: Tensor) -> Tuple[Tensor, Tensor, object]:
+        """The serving call: images (B, H, W, 3) and their box prompts
+        (B, N, 4) xyxy canonicalized together (no masks), the prediction
+        network run on the canonical pair, its mask logits mapped back to
+        the input frame (`invert_masks`). Returns (mask logits (B, N, H, W),
+        predicted IoU (B, N), info). Spans: `pipeline`, with the
+        canonicalizer's and `predict` inside it."""
+        with annotate("pipeline"):
+            images_c, targets_c, info = self.canonicalizer(
+                images, {"boxes": boxes}, training=False)
+            with annotate("predict"):
+                masks, ious = self.prediction_network(images_c, targets_c["boxes"])
+            return self.invert_masks(info, masks), ious, info
 
     def invert_masks(self, info, masks: Tensor) -> Tensor:
         """(B, N, H, W) canonical-frame masks -> the input frame (scalar

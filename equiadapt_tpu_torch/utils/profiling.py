@@ -21,9 +21,11 @@ continuous canonicalizers; `canon/prep`, the crop and resize, inside it),
 `canon/select_element` and `canon/warp` under it, `canon/invert`,
 `predict`, `train/step` with `train/forward`, `train/loss`,
 `train/backward` and `train/optimizer` under it, `dist/sync_bn` and
-`dist/grad_sync`. A span records only while a `torch.profiler` session
-records or inside `recording()`; otherwise it is a shared null context
-(two flag reads, no allocation). Recording, a span enters
+`dist/grad_sync`, and SAM's `sam/encoder` (with `sam/attn/window`,
+`sam/attn/global` and `sam/neck`), `sam/prompt`, `sam/decoder` and
+`sam/upsample` (`models.sam`). A span records only while a
+`torch.profiler` session records or inside `recording()`; otherwise it is
+a shared null context (two flag reads, no allocation). Recording, a span enters
 `torch.profiler.record_function(name)` (so it shows in captures with CPU
 activity), keeps its host begin and end in nanoseconds on the profiler's
 clock (`time.time_ns`, the wall clock kineto stamps its events with), a
@@ -44,8 +46,10 @@ milliseconds and host syncs a call.
 **Counters.** `count(name, n)` adds to a process-wide counter (host syncs
 by span are counted there too, and `steerable/kernel_cache_hit` /
 `steerable/kernel_cache_miss`, each grad-off call of a `SteerableConv`
-that reused or assembled its kernel); `counters()` returns it with the kernel
-modules' launch counters (`launches/<wrapper>/<dtype>` and
+that reused or assembled its kernel; `sam/prompts`, the box prompts SAM
+was given, and `sam/attn_score_elems`, the attention score elements its
+calls materialized); `counters()` returns it with the kernel modules'
+launch counters (`launches/<wrapper>/<dtype>` and
 `paths/<wrapper>/<dtype>/<path>`).
 
 `idle_by_span(trace_dir)` puts each idle gap between device operations in
@@ -75,7 +79,7 @@ __all__ = ["profile_trace", "annotate", "recording", "last_session", "Session",
 
 OUTSIDE = "outside the program"
 # the first path segment of every span the program names
-PROGRAM_SPANS = ("pipeline", "canon", "predict", "train", "dist")
+PROGRAM_SPANS = ("pipeline", "canon", "predict", "train", "dist", "sam")
 SYNC_MESSAGE = "called a synchronizing CUDA operation"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 

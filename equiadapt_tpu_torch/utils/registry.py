@@ -45,6 +45,7 @@ from equiadapt_tpu_torch.models import (
     ResNet50,
 )
 from equiadapt_tpu_torch.models.detection import MaskRCNNLite
+from equiadapt_tpu_torch.models.sam import SamModel, sam_vit_b_kwargs
 from equiadapt_tpu_torch.models.segmentation import SAMLite
 from equiadapt_tpu_torch.models.vit import ViT
 from equiadapt_tpu_torch.nbody import EuclideanGroupNBody, VNDeepSets
@@ -219,9 +220,12 @@ def get_segmentation_prediction_network(architecture: str, image_size: int,
                                         num_classes: int = 91, device="cuda",
                                         **kw) -> nn.Module:
     """SAMLite ("sam", light encoder; "sam_vit", SAM's ViT encoder with 4
-    mask tokens) for images of `image_size`, or MaskRCNNLite ("maskrcnn",
-    `num_classes` classes; it takes any image size); `kw` goes to the
-    module."""
+    mask tokens) for images of `image_size`, SAM ViT-B at its published
+    widths ("sam_vit_b", `models.sam.SamModel`; `dtype` its computation's),
+    or MaskRCNNLite ("maskrcnn", `num_classes` classes; it takes any image
+    size); `kw` goes to the module."""
+    if architecture == "sam_vit_b":
+        return SamModel(**dict(sam_vit_b_kwargs(image_size), **kw), device=device)
     if architecture == "sam":
         return SAMLite(image_size, device=device, **kw)
     if architecture == "sam_vit":
