@@ -8,8 +8,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc compiles the port's CUDA sources from this checkout, one
    nvcc per source, all started together; every kernel (select, shear,
-   orbit, exact warp, kNN) must report 0 bytes of stack frame and no
-   spills (ptxas);
+   orbit, exact warp, kNN, SAM attention) must report 0 bytes of stack
+   frame and no spills (ptxas);
 3. kernels against their plain PyTorch versions:
    - K1 (steered rotate-select) and K2 (fused rotate-select-roll) with
      `torch.equal` (fp32 and bf16; C4, C8, D8; C in {3, 16}; random
@@ -290,7 +290,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    one `serve` call counted (launch counts zeroed just before it and read
    after it: K3 once on the images, K1a once on the mask logits, their
    paths asserted, each first launch checked again on a copy of its
-   inputs);
+   inputs; the fused SAM attention 4 times by its "global" path and 8
+   times by its "window" path, no encoder score written out); before all
+   that, the fused SAM attention at the cell's two shapes (bf16: a global
+   block (8, 12 heads, 64 x 64, 64), 200 windows of 14 x 14), within 1e-2
+   of the largest plain output, timed beside its bound, its plain version
+   and `F.scaled_dot_product_attention` with the bias as its mask;
 22. item 15 (the rest of the harness): (a) BASELINE config 1's training
    CLI with `prediction.pretrained=true` on a random torchvision-layout
    ResNet-50 `.pth` (one epoch, then test mode from its checkpoint, each
@@ -487,6 +492,19 @@ SEG_B, SEG_IMAGE, SEG_PROMPTS, SEG_HEADS, SEG_TRAIN_B = 8, 1024, 4, 8, 4
 # the SAM ViT-B serving path's box prompts an image (cli.segmentation_serve,
 # the benchmark's sam-vitb-c4.segment cell)
 SEG_SERVE_PROMPTS = 8
+# the fused SAM attention at the segment cell's shapes, bf16 (batch, heads,
+# grid H, W, head width): a global block of 8 images, and a windowed block's
+# 200 windows of 14 x 14 (8 images padded to 70 x 70 tokens); its bar on
+# max |kernel - plain| / max |plain|: the kernel rounds its output to bf16
+# (2^-9 of a value) and its probabilities before the normalisation, the
+# plain version after it (2^-9 of a weight)
+SAM_ATTN_SHAPES = {"global": (8, 12, 64, 64, 64), "window": (200, 12, 14, 14, 64)}
+SAM_ATTN_BAR = 1e-2
+# SAM ViT-B's decoder tokens with a box prompt (the IoU token, 4 mask
+# tokens, the box's two corners) and heads: the scores its attention
+# writes out a served batch, 2 T^2 + 5 T P a prompt and head for P image
+# tokens (two two-way blocks and the final token-to-image attention)
+SAM_DECODER_TOKENS, SAM_DECODER_HEADS = 7, 8
 SEG_CPU_B, SEG_CPU_IMAGE = 2, 256
 SEG_CONFIG = os.path.join("examples", "images", "segmentation", "configs", "default.yaml")
 # phase 22, item 15: the pretrained CLI run (config 1, a random torchvision
@@ -3903,6 +3921,76 @@ def seg_eval(pipe, batch):
     return x_c, t_c, masks, ious, info, pipe.invert_masks(info, masks)
 
 
+def sam_attention_rows(bwidth):
+    """The fused SAM attention (`ops/kernels/sam_attention.py`) at
+    SAM_ATTN_SHAPES: q, k and v strided views of one (B, N, 3, heads, hd)
+    tensor as the qkv linear leaves them, the tables from the encoder's two
+    einsums over N(0, 0.1^2) relative-position tables (the benchmark's
+    scale). Each shape launches once by its path, its output within
+    SAM_ATTN_BAR of the plain version's; timed beside its bound (the two
+    products' FLOPs at the bf16 peak or its bytes at `bwidth`, the larger),
+    the plain version and `F.scaled_dot_product_attention` with the bias
+    materialised as its `attn_mask` (the yardstick only: the port never
+    calls it), medians of WINDOWS windows of 3 calls taking turns."""
+    from equiadapt_tpu_torch.ops.kernels import sam_attention as sa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(93)
+    peak = rate_for(tuple((k, v["bfloat16"]) for k, v in PEAK_FLOPS.items()),
+                    torch.cuda.get_device_name(0), "bf16 peak")
+    rows = {}
+    for path, (B, nh, H, W, hd) in SAM_ATTN_SHAPES.items():
+        N = H * W
+        qkv = torch.randn(B, N, 3, nh, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        Rh, Rw = ((0.1 * torch.randn(n, n, hd, generator=gen, device=DEVICE)).to(torch.bfloat16)
+                  for n in (H, W))
+        r_q = q.transpose(1, 2).reshape(B, nh, H, W, hd)
+        rel_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, Rh).reshape(B, nh, N, H)
+        rel_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, Rw).reshape(B, nh, N, W)
+        args = (q, k, v, rel_h, rel_w, H, W)
+        sa.reset_launches()
+        got = sa.sam_attention(*args)
+        sync()
+        assert sa.path_launches == {f"sam_attention/bfloat16/{path}": 1}, sa.path_launches
+        want = sa.sam_attention_plain(*args)
+        err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        assert err <= SAM_ATTN_BAR, (path, err)
+        del got, want
+        mask = (rel_h.view(B, nh, N, H, 1) + rel_w.view(B, nh, N, 1, W)).reshape(B, nh, N, N)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        timed = windowed_ms({
+            "ms": lambda: sa.sam_attention(*args),
+            "plain_ms": lambda: sa.sam_attention_plain(*args),
+            "library_ms": lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)},
+            reps=3)
+        del mask
+        flops = 4 * B * nh * N * N * hd
+        nbytes = 2 * (4 * B * N * nh * hd + B * nh * N * (H + W))
+        bound = {"flops": flops / peak * 1e3, "bytes": nbytes / bwidth * 1e3}
+        by = max(bound, key=bound.get)
+        rows[path] = {"shape": [B, nh, H, W, hd], "path": path, "max_rel_err": err,
+                      "bar": SAM_ATTN_BAR, **timed, "bound_ms": bound[by], "bound": by,
+                      "roofline_pct": 100 * bound[by] / timed["ms"],
+                      "tflops": flops / timed["ms"] / 1e9}
+        log(f"sam_attention {path}: {json.dumps(rows[path])}")
+        del qkv, q, k, v, rel_h, rel_w, r_q, args, qh, kh, vh
+        torch.cuda.empty_cache()
+    sa.reset_launches()
+    return rows
+
+
+def sam_attention_entry(seg):
+    """The `kernels` line's entry of the fused SAM attention from phase 21:
+    each shape's row (`sam_attention_rows`) and the launches by plan of
+    the counted served batch (`seg_serve_phase`)."""
+    fields = ("shape", "path", "max_rel_err", "ms", "bound_ms", "bound", "roofline_pct",
+              "tflops", "plain_ms", "library_ms")
+    return {"name": "sam_attention[bfloat16]",
+            **{path: {f: row[f] for f in fields} for path, row in seg["attention"].items()},
+            "serve_launches": {k: v for k, v in seg["serve"]["paths"].items()
+                               if k.startswith("sam_attention/")}}
+
+
 def seg_kernel_rows(sw, bwidth):
     """K1a on the path's mask planes ((B, N, 1024, 1024) fp32, one source:
     the word path, and a misaligned view: the element path) and K3 on its
@@ -4193,8 +4281,13 @@ def seg_serve_phase(tp, sw, src_log, size=None):
     inputs (a NaN payload and a -0.0 included); then one `serve` call,
     counted: one K3 launch on the images and one K1a launch on the mask
     logits, by those paths, each again on a copy of its inputs against the
-    plain version."""
+    plain version, and 12 of the fused attention (SAM ViT-B's 4 global
+    blocks by its "global" path, its 8 windowed ones by "window"), the
+    encoder writing no score out (`sam/attn_score_elems` grows by the
+    decoder's alone)."""
     from equiadapt_tpu_torch.cli import segmentation_serve as cli
+    from equiadapt_tpu_torch.ops.kernels import sam_attention as sa
+    from equiadapt_tpu_torch.utils import profiling
 
     size = size or SEG_IMAGE
     gen = torch.Generator(device=DEVICE).manual_seed(79)
@@ -4222,15 +4315,27 @@ def seg_serve_phase(tp, sw, src_log, size=None):
     pipe = cli.build_serving_pipeline(cfg, DEVICE)
     batch = tp.synthetic_coco_batch(torch.Generator(device=DEVICE).manual_seed(80), SEG_B,
                                     image_size=size, num_prompts=SEG_SERVE_PROMPTS)
+    scores_before = profiling.counters().get("sam/attn_score_elems", 0)
     with torch.no_grad():
         (masks, ious, info), counts = counted(
-            (sw,), src_log, "segmentation_serve",
+            (sw, sa), src_log, "segmentation_serve",
             lambda: pipe.serve(batch["image"], batch["targets"]["boxes"]))
-    log(f"segmentation serve: launches {counts['launches']}, paths {counts['paths']}")
+    scores = profiling.counters().get("sam/attn_score_elems", 0) - scores_before
+    log(f"segmentation serve: launches {counts['launches']}, paths {counts['paths']}, "
+        f"attention scores written out {scores}")
+    # the encoder's 4 global and 8 windowed blocks through the fused kernel;
+    # only the decoder writes its scores out
+    T, P = SAM_DECODER_TOKENS, (size // 16) ** 2
+    assert scores == SEG_B * SEG_SERVE_PROMPTS * SAM_DECODER_HEADS * (
+        2 * T * T + 5 * T * P), scores
     assert counts["launches"] == {"select_planes_nhwc/bfloat16": 1,
-                                  "select_planes/float32": 1}, counts
+                                  "select_planes/float32": 1,
+                                  "sam_attention/bfloat16": 12}, counts
     assert counts["paths"] == {"select_planes_nhwc/bfloat16/tile": 1,
-                               "select_planes/float32/word": 1}, counts
+                               "select_planes/float32/word": 1,
+                               "sam_attention/bfloat16/global": 4,
+                               "sam_attention/bfloat16/window": 8}, counts
+    out["attention_scores_written"] = scores
     assert counts["select_sources"] == {"select_planes/float32,1 source": 1}, counts
     assert {row["kernel"] for row in counts["checked"]} == {
         "select_planes_nhwc[bfloat16]", "select_planes[float32,1 source]"}, counts
@@ -4246,7 +4351,7 @@ def seg_serve_phase(tp, sw, src_log, size=None):
 
 def segmentation_phase(tp, sw, src_log, bwidth):
     """Phase 21: BASELINE config 5 at full width (see the module docstring)."""
-    out = {"kernels": seg_kernel_rows(sw, bwidth)}
+    out = {"kernels": seg_kernel_rows(sw, bwidth), "attention": sam_attention_rows(bwidth)}
     pipe = build_segmentation(tp)
     batch = seg_batch(tp, 78, SEG_B)
     with torch.no_grad():
@@ -5412,7 +5517,7 @@ def main() -> int:
                 f"{row['stack_frame']} bytes stack frame, "
                 f"spills {row['spill_stores']} / {row['spill_loads']} bytes, "
                 f"{row['smem']} bytes static smem")
-    for src in ("select_warp", "shear_rotate", "orbit", "bilinear_warp", "knn"):
+    for src in ("select_warp", "shear_rotate", "orbit", "bilinear_warp", "knn", "sam_attention"):
         # no local memory in any kernel
         rows = results["ptxas"][src]
         assert rows and all(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0
@@ -5806,6 +5911,9 @@ def main() -> int:
                                {"cases": pc_train["knn"], "launches": pc_train_launches})
         kernels += orbit_entries(orb, gen_orbit, bwidth, orbit_launches, paths)
         checks["orbit"] = orbit_checks
+        # the fused SAM attention (phase 21): its rows at the segment cell's
+        # two shapes and its launches in one served SAM ViT-B batch
+        kernels.append(sam_attention_entry(seg))
         # phase 19's launches, each checked at its own shape (`counted`)
         cli_checked = [row for run in cli_runs.values() for row in run["checked"]]
         cli_checked += [row for run in pc_train["cli"].values() for row in run["checked"]]
@@ -5894,7 +6002,8 @@ def main() -> int:
         "sweep": sg["sweep"], "cli_test": sg["cli"]["test_metrics"],
         "kernels": {k: {f: row[f] for f in ("shape", "ms", "bound_ms", "library_ms",
                                               "plain_ms")}
-                    for k, row in sg["kernels"].items()}}}))
+                    for k, row in sg["kernels"].items()},
+        "sam_attention": sam_attention_entry(sg)}}))
     ex, dt, nl = it15["export"], it15["detection"], it15["native_loader"]
     log(json.dumps({"item15": {
         "device": smi,

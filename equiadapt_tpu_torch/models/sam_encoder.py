@@ -21,9 +21,17 @@ Parameters are named after SAM's torch tree (`patch_embed.proj`,
 JAX package's Flax names (`patch_embed`, `block{i}`, `lin1`, `neck_conv1`,
 ...) onto them for `utils.jax_weights`.
 
-Attention is written out as products and a softmax, as in the JAX package:
-a global block at 1024 px holds (B, heads, 4096, 4096) scores, the bias
-added to them in place.
+Attention takes one of two paths (`ops.kernels.sam_attention.
+attention_path`). A bf16 call on a card that needs no gradient (serving),
+at a head width and grid the kernel takes, runs the fused CUDA kernel of
+`ops.kernels.sam_attention`: scores, bias, softmax and the product with v
+in one launch, reading q, k and v from the qkv output by strides and
+writing the (B, HW, C) layout `proj` reads; no score reaches memory. Every
+other call (fp32, the CPU, training, a shape the kernel has no plan for)
+writes the attention out as products and a softmax, as the JAX package
+does: a global block at 1024 px holds (B, heads, 4096, 4096) scores, the
+bias added to them in place. Both take the bias tables from the same two
+einsums of the unscaled q.
 
 `dtype` is the computation's dtype (fp32 by default, as in the JAX
 package). Parameters stay fp32: under dtype=bfloat16 the linears,
@@ -35,7 +43,9 @@ Spans (`utils.profiling.annotate`): `sam/encoder` around the forward, with
 `sam/attn/window` (a windowed block's attention, from partition to
 unpartition), `sam/attn/global` (a global block's attention, its bias
 included) and `sam/neck` inside it. The counter `sam/attn_score_elems`
-adds the score elements each attention call materializes, from the shapes.
+adds the score elements each written-out attention call materializes, from
+the shapes (0 on the fused path, whose launches `counters()` gives as
+`paths/sam_attention/<dtype>/{global,window}`).
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from equiadapt_tpu_torch.common.layers import CastConv2d, CastLayerNorm, CastLinear
+from equiadapt_tpu_torch.ops.kernels import sam_attention
 from equiadapt_tpu_torch.ops.warp import resize
 from equiadapt_tpu_torch.utils.profiling import annotate, count
 
@@ -128,14 +139,13 @@ class SamAttention(nn.Module):
         return self.rel_pos_h, self.rel_pos_w
 
     def _attend(self, x: Tensor) -> Tensor:
-        """The heads' outputs before `proj`, (B, H * W, heads * head_dim)."""
+        """The heads' outputs before `proj`, (B, H * W, heads * head_dim):
+        the fused kernel or the scores written out (`attention_path`)."""
         B, H, W, C = x.shape
         nh, hd = self.num_heads, self.head_dim
-        qkv = self.qkv(x.reshape(B, H * W, C))
-        qkv = qkv.reshape(B, H * W, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, HW, hd)
-        count("sam/attn_score_elems", B * nh * (H * W) ** 2)
-        attn = (q * hd ** -0.5) @ k.transpose(-2, -1)  # (B, nh, HW, HW)
+        qkv = self.qkv(x.reshape(B, H * W, C)).reshape(B, H * W, 3, nh, hd)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)  # (B, nh, HW, hd) views
+        bias_h = bias_w = None
         if self.use_rel_pos:
             rel_h, rel_w = self._rel_pos()
             Rh = _rel_pos_table(H, H, rel_h).to(q.dtype)  # (H, H, hd)
@@ -143,6 +153,15 @@ class SamAttention(nn.Module):
             r_q = q.reshape(B, nh, H, W, hd)
             bias_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, Rh)
             bias_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, Rw)
+        path = sam_attention.attention_path(
+            qkv.device, qkv.dtype, sam_attention.needs_grad(qkv, bias_h, bias_w), hd, H, W)
+        if path == "fused":
+            tables = (None, None) if bias_h is None else (
+                bias_h.reshape(B, nh, H * W, H), bias_w.reshape(B, nh, H * W, W))
+            return sam_attention.sam_attention(*qkv.unbind(2), *tables, H, W)
+        count("sam/attn_score_elems", B * nh * (H * W) ** 2)
+        attn = (q * hd ** -0.5) @ k.transpose(-2, -1)  # (B, nh, HW, HW)
+        if bias_h is not None:
             # in place, in the JAX package's order: no backward reads the
             # product, and a global block's scores are the largest tensor here
             attn.view(B, nh, H, W, H, W).add_(bias_h[..., :, None]).add_(

@@ -9,4 +9,7 @@ rotate-select-roll (K2), from `csrc/select_warp.cu`.
 `knn`: the fused k-nearest-neighbour indices (K8), from `csrc/knn.cu`.
 `orbit`: the exact D4 orbit (K4), from `csrc/orbit.cu`, and
 `materialize_orbit`, the |G|-orbit of the orbit-scoring paths.
+`sam_attention`: SAM's attention with its decomposed relative-position
+bias in one kernel, from `csrc/sam_attention.cu` (no TPU counterpart: the
+JAX package writes it out).
 """

@@ -38,7 +38,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("select_warp", "shear_rotate", "bilinear_warp", "knn", "orbit")
+SOURCES = ("select_warp", "shear_rotate", "bilinear_warp", "knn", "orbit", "sam_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -48,9 +48,9 @@ by span are counted there too, and `steerable/kernel_cache_hit` /
 `steerable/kernel_cache_miss`, each grad-off call of a `SteerableConv`
 that reused or assembled its kernel; `sam/prompts`, the box prompts SAM
 was given, and `sam/attn_score_elems`, the attention score elements its
-calls materialized); `counters()` returns it with the kernel modules'
-launch counters (`launches/<wrapper>/<dtype>` and
-`paths/<wrapper>/<dtype>/<path>`).
+written-out calls materialized: none on the fused kernel's path);
+`counters()` returns it with the kernel modules' launch counters
+(`launches/<wrapper>/<dtype>` and `paths/<wrapper>/<dtype>/<path>`).
 
 `idle_by_span(trace_dir)` puts each idle gap between device operations in
 the newest capture down to the innermost program spans open on the host
@@ -340,10 +340,10 @@ def counters() -> Dict[str, int]:
     """The counters of `count`, and the hand kernels' launches by wrapper
     and dtype (`launches/...`) and by launch path (`paths/...`)."""
     from equiadapt_tpu_torch.ops.kernels import (
-        bilinear_warp, knn, orbit, select_warp, shear_rotate)
+        bilinear_warp, knn, orbit, sam_attention, select_warp, shear_rotate)
 
     out = dict(_counts)
-    for m in (select_warp, shear_rotate, orbit, bilinear_warp, knn):
+    for m in (select_warp, shear_rotate, orbit, bilinear_warp, knn, sam_attention):
         out.update({f"launches/{k}": v for k, v in m.launches.items()})
         out.update({f"paths/{k}": v for k, v in getattr(m, "path_launches", {}).items()})
     return out

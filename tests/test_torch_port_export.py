@@ -36,6 +36,7 @@ from equiadapt_tpu_torch.ops.kernels import _build
 from equiadapt_tpu_torch.ops.kernels import bilinear_warp as tbw
 from equiadapt_tpu_torch.ops.kernels import knn as tknn
 from equiadapt_tpu_torch.ops.kernels import orbit as torbit
+from equiadapt_tpu_torch.ops.kernels import sam_attention as tsa
 from equiadapt_tpu_torch.ops.kernels import select_warp as tsw
 from equiadapt_tpu_torch.ops.kernels import shear_rotate as tsr
 from equiadapt_tpu_torch.utils.export import (
@@ -311,6 +312,8 @@ def _shape_cases(dtype):
     R = torch.tensor([[[0.8, -0.6], [0.6, 0.8]], [[1.0, 0.0], [0.0, 1.0]]])
     r = torch.tensor([0.3, -0.5])
     pts = torch.randn(2, 1024, 3, generator=g).to(dtype)
+    qkv = torch.randn(2, 196, 3, 12, 64, generator=g).to(dtype)
+    rel_h, rel_w = (torch.randn(2, 12, 196, 14, generator=g).to(dtype) for _ in range(2))
     return [
         (tsw._select_op, ("select_planes", nchw, zero, idx, None, None, 1, 1),
          tsw.select_planes_plain(nchw, zero, idx)),
@@ -326,6 +329,8 @@ def _shape_cases(dtype):
          tsr.shear_rotate_residual_plain(img16, r, 112.0, 112.0, "zeros")),
         (tbw._warp_op, (img16, R, "border"), tbw._warp_center_affine(img16, R, "border")),
         (tknn._knn_op, (pts, 20), tknn.knn_indices_plain(pts, 20)),
+        (tsa._attention_op, (*qkv.unbind(2), rel_h, rel_w, 14, 14),
+         tsa.sam_attention_plain(*qkv.unbind(2), rel_h, rel_w, 14, 14)),
     ]
 
 
@@ -333,7 +338,7 @@ def _shape_cases(dtype):
 def test_every_kernel_operator_has_a_fake_of_its_plain_shape(dtype):
     cases = _shape_cases(dtype)
     ops = {str(op) for op, _, _ in cases}
-    assert len(ops) == 6  # K1-K3 share one operator; K4, K5, K6, K7, K8
+    assert len(ops) == 7  # K1-K3 share one operator; K4, K5, K6, K7, K8, SAM's attention
     for op, args, plain in cases:
         meta_args = [[_meta(t) for t in a] if isinstance(a, list) and a
                      and isinstance(a[0], torch.Tensor)
@@ -345,4 +350,4 @@ def test_every_kernel_operator_has_a_fake_of_its_plain_shape(dtype):
                   if isinstance(getattr(torch.ops.eqt, name), torch._ops.OpOverloadPacket)}
     assert registered == {"select_warp", "rot90_flip_orbit", "rot90_centered_select",
                           "shear_rotate_residual", "warp_rotate_center_exact",
-                          "knn_indices"}
+                          "knn_indices", "sam_attention"}
