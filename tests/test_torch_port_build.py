@@ -9,6 +9,7 @@ import shutil
 import pytest
 
 from equiadapt_tpu_torch.ops.kernels import _build
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -31,6 +31,7 @@ from equiadapt_tpu_torch.utils import config as tconfig
 from equiadapt_tpu_torch.utils import registry as treg
 from equiadapt_tpu_torch.utils.jax_weights import flax_placements
 from test_torch_port_optimized import random_variables
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 CLS_CFG = Path(__file__).resolve().parents[1] / "examples/images/classification/configs"
 DEFAULT = f"config={CLS_CFG}/default.yaml"

@@ -22,6 +22,7 @@ import torch
 
 from equiadapt_tpu_torch.cli import classification_serve as serve
 from equiadapt_tpu_torch.cli import classification_train as train
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 TINY = [
     "dataset.dataset_name=synthetic",
@@ -36,19 +37,8 @@ TINY = [
 ]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these training loops of small tensors gain
-    little from more, and a pool of busy-waiting threads beside another
-    worker's on the same cores slowed both files twenty-fold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory, one_thread):
+def trained(tmp_path_factory, one_intra_op_thread):  # noqa: F811
     """One epoch of TINY with a checkpoint: (checkpoint dir, state, printout)."""
     import contextlib
     import io

@@ -28,6 +28,7 @@ from equiadapt_tpu_torch.data import autoaugment as taa
 from equiadapt_tpu_torch.data import images as timg
 from equiadapt_tpu_torch.data import synthetic as tsyn
 from equiadapt_tpu_torch.utils.config import Config as TConfig
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -37,6 +37,7 @@ from equiadapt_tpu_torch.common import math as tmath
 from equiadapt_tpu_torch.ops.kernels import bilinear_warp as tbw
 from equiadapt_tpu_torch.ops.kernels import shear_rotate as tsr
 from equiadapt_tpu_torch.ops.warp import bilinear_sample
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 DTYPES = {"float32": (np.float32, jnp.float32, torch.float32),
           "bfloat16": (np.float32, jnp.bfloat16, torch.bfloat16)}

@@ -80,6 +80,7 @@ from test_torch_port_optimized import random_variables
 from test_torch_port_steerable import _redraw, _smooth
 from test_torch_port_train import _close_tree, _grad_tree
 from test_fast_warp import _smooth_images
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 IMG = 32
 NET = dict(in_channels=3, out_channels=4, kernel_size=5, num_layers=1)

@@ -31,6 +31,7 @@ from equiadapt_tpu.models import ViT as JViT
 from equiadapt_tpu_torch.models.detection import MaskRCNNLite
 from equiadapt_tpu_torch.models.vit import ViT as TViT
 from equiadapt_tpu_torch.pipelines.classification import TrainState
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 def _conv_w(rng, o, i, k):

@@ -32,6 +32,7 @@ import equiadapt_tpu_torch.models.detection as tdet
 import equiadapt_tpu_torch.utils.registry as treg
 from equiadapt_tpu_torch.cli import maskrcnn_lite_experiment as experiment
 from equiadapt_tpu_torch.utils.jax_weights import flax_placements
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 B, SIZE, N, CLASSES = 2, 64, 4, 5
 
@@ -251,13 +252,8 @@ def test_registry_builds_maskrcnn_as_jax_does():
 
 
 def test_experiment_runs_two_steps(tmp_path):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        out = tmp_path / "record.json"
-        result = experiment.main(["--steps", "2", "--out", str(out)], device="cpu")
-    finally:
-        torch.set_num_threads(threads)
+    out = tmp_path / "record.json"
+    result = experiment.main(["--steps", "2", "--out", str(out)], device="cpu")
     saved = json.loads(out.read_text())
     assert saved == result
     assert saved["config"]["steps"] == 2 and saved["device"] == "cpu"

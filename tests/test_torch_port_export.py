@@ -44,18 +44,10 @@ from equiadapt_tpu_torch.utils.export import (
     export_sharded_apply,
     load_exported,
 )
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-6)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as the other tracing-heavy port files."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def random_variables(module, *args, seed=0):

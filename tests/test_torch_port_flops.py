@@ -27,6 +27,7 @@ from equiadapt_tpu.utils import tuner as jtuner
 from equiadapt_tpu_torch.utils import flops as tflops
 from equiadapt_tpu_torch.utils import profiling as tprof
 from equiadapt_tpu_torch.utils import tuner as ttuner
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 def test_matmul_and_batched_matmul_closed_forms():

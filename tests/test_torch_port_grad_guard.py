@@ -31,6 +31,7 @@ from equiadapt_tpu_torch.ops.kernels import _build
 from equiadapt_tpu_torch.ops.kernels import bilinear_warp as tbw
 from equiadapt_tpu_torch.ops.kernels import orbit as torbit
 from equiadapt_tpu_torch.ops.kernels import shear_rotate as tsr
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 def _rotations(theta):

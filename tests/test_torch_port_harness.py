@@ -33,6 +33,7 @@ from equiadapt_tpu_torch.pipelines import nbody as tpipe
 from equiadapt_tpu_torch.utils import checkpoint as tck
 from equiadapt_tpu_torch.utils import config as tcfg
 from equiadapt_tpu_torch.utils import metrics as tmet
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 def _state(seed=0, hidden=8, canon_hidden=4):

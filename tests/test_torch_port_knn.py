@@ -18,6 +18,7 @@ import torch
 from equiadapt_tpu.pointcloud.networks import knn_indices as j_knn
 from equiadapt_tpu_torch.ops.kernels import knn as tknn
 from equiadapt_tpu_torch.pointcloud import networks as tnet
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 def knn_margin(points: np.ndarray, k: int, order: bool = True) -> float:

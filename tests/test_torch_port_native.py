@@ -17,6 +17,7 @@ import pytest
 import equiadapt_tpu.native.loader as jloader
 import equiadapt_tpu_torch.native.loader as tloader
 from equiadapt_tpu_torch.ops.kernels import _build
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 RECORDS, BATCH = 64, 16
 

@@ -45,6 +45,7 @@ from equiadapt_tpu_torch.nbody import vn_deepsets as tvn
 from equiadapt_tpu_torch.pipelines import nbody as tpipe
 from equiadapt_tpu_torch.utils import config as tcfg
 from equiadapt_tpu_torch.utils import registry as treg
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 KEY = jax.random.key(0)
 TOL = dict(rtol=1e-5, atol=1e-5)

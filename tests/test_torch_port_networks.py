@@ -20,6 +20,7 @@ from equiadapt_tpu_torch.images.networks import equivariant as teq
 from equiadapt_tpu_torch.images.networks import group_conv as tgc
 from equiadapt_tpu_torch.models import resnet as tres
 from equiadapt_tpu_torch.utils import load_flax_variables
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 def numpy_variables(variables, seed=0):

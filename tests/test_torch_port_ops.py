@@ -19,6 +19,7 @@ from equiadapt_tpu_torch.common import info as tinfo
 from equiadapt_tpu_torch.common import selector as tsel
 from equiadapt_tpu_torch.ops import group_action as tga
 from equiadapt_tpu_torch.ops import warp as tw
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-5
 

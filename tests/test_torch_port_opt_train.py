@@ -36,6 +36,7 @@ from equiadapt_tpu_torch.pipelines import classification as tcls
 from equiadapt_tpu_torch.utils import registry as treg
 from equiadapt_tpu_torch.utils.jax_weights import flax_placements
 from test_torch_port_optimized import random_variables
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 def _x(shape, seed=0, scale=1.0):

@@ -24,6 +24,7 @@ import equiadapt_tpu_torch as tp
 from equiadapt_tpu_torch.common.info import DiscreteCanonicalizationInfo
 from equiadapt_tpu_torch.images.networks import conv as tconv
 from equiadapt_tpu_torch.utils.jax_weights import flax_placements
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 def random_variables(module, x, seed=0):

@@ -19,6 +19,7 @@ import torch
 
 from equiadapt_tpu.ops.pallas import orbit as jorbit
 from equiadapt_tpu_torch.ops.kernels import orbit as torbit
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 
 def _bits(seed, shape, dtype):

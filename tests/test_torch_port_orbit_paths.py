@@ -24,6 +24,7 @@ import torch
 
 from equiadapt_tpu_torch.ops.kernels import _build
 from equiadapt_tpu_torch.ops.kernels import orbit as torbit
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 TILE = 32
 BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}

@@ -29,6 +29,7 @@ from equiadapt_tpu_torch.common.layers import BatchNorm, sharded_draw
 from equiadapt_tpu_torch.pipelines import classification as tcls
 from equiadapt_tpu_torch.utils import config as cfgmod
 from equiadapt_tpu_torch.utils.checkpoint import _snapshot
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 DEADLINE = 240  # seconds a world may take
 LOSS_KW = {"prior_weight": 100.0}
@@ -41,14 +42,6 @@ PP_VIT_KW = dict(num_classes=5, patch_size=4, hidden_dim=16, num_layers=4, num_h
                  mlp_dim=32)
 SAM_KW = dict(img_size=32, patch_size=8, embed_dim=16, depth=2, num_heads=4, out_chans=8,
               window_size=2, global_attn_indexes=(1,))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _spawn(fn, world, *args):

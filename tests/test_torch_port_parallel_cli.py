@@ -14,9 +14,9 @@ import json
 import os
 
 import pytest
-import torch
 
 from equiadapt_tpu_torch.cli import classification_train as train
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 TINY = [
     "dataset.dataset_name=synthetic",
@@ -30,14 +30,6 @@ TINY = [
     "prediction.architecture=resnet18",
 ]
 DEADLINE = 300
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _train_then_test(ck, devices):

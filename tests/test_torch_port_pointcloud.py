@@ -38,6 +38,7 @@ from equiadapt_tpu_torch.pointcloud import networks as tnet
 from equiadapt_tpu_torch.pointcloud import vector_neurons as tvn
 
 from test_torch_port_knn import knn_margin
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 KEY = jax.random.key(0)
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -25,23 +25,13 @@ import torch
 
 from equiadapt_tpu_torch.cli import partseg_train as ps
 from equiadapt_tpu_torch.cli import pointcloud_train as pc
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLS_YAML = os.path.join(REPO, "examples", "pointcloud", "classification", "configs",
                         "default.yaml")
 SMALL = ["experiment.num_epochs=1", "experiment.batch_size=4",
          "dataset.num_points=32", "canonicalization.network_hyperparams.n_knn=4"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as tests/test_torch_port_cli.py runs: training
-    loops of small tensors gain little from more, and busy-waiting thread
-    pools beside another worker's on the same cores slow both."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def run(main, argv):
@@ -53,7 +43,7 @@ def run(main, argv):
 
 
 @pytest.fixture(scope="module")
-def config_4a(tmp_path_factory, one_thread):
+def config_4a(tmp_path_factory, one_intra_op_thread):  # noqa: F811
     """One epoch of config 4a's yaml, cut to size, with a checkpoint."""
     ck = tmp_path_factory.mktemp("pc") / "ck"
     state, printed = run(pc.main, [f"config={CLS_YAML}",
@@ -137,7 +127,7 @@ def test_pointcloud_train_on_modelnet_files(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def partseg(tmp_path_factory, one_thread):
+def partseg(tmp_path_factory, one_intra_op_thread):  # noqa: F811
     ck = tmp_path_factory.mktemp("ps") / "ck"
     state, printed = run(ps.main, ["experiment.num_epochs=1", "dataset.num_points=32",
                                    "canonicalization.network_hyperparams.n_knn=4",

@@ -63,6 +63,7 @@ from equiadapt_tpu_torch.utils import flops as tflops
 
 from test_torch_port_pointcloud import _t, _x, assert_margins, knn_inputs  # noqa: F401
 from test_torch_port_train import _close_tree, _grad_tree
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 KEY = jax.random.key(0)
 

@@ -24,6 +24,7 @@ from equiadapt_tpu_torch.cli import classification_serve as serve
 from equiadapt_tpu_torch.cli import classification_train as train
 from equiadapt_tpu_torch.ops.kernels import select_warp, shear_rotate
 from equiadapt_tpu_torch.utils import profiling as prof
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 TINY = [
     "dataset.dataset_name=synthetic",
@@ -37,14 +38,6 @@ TINY = [
 ]
 SERVE_SPANS = {"pipeline", "canon", "canon/get_group_activations", "canon/prep",
                "canon/select_element", "canon/warp", "predict"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def cpu_profile():

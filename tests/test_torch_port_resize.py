@@ -34,6 +34,7 @@ from equiadapt_tpu_torch.images.networks import steerable as tst
 from equiadapt_tpu_torch.models import sam_encoder as tsam
 from equiadapt_tpu_torch.ops import warp as twarp
 from equiadapt_tpu_torch.pointcloud import vector_neurons as tvn
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 METHODS = ("nearest", "linear", "cubic", "lanczos3", "lanczos5")
 # (H, W) -> (h, w): shrink, grow, and one axis each way

@@ -23,6 +23,7 @@ from equiadapt_tpu_torch.models import sam_encoder as se
 from equiadapt_tpu_torch.ops.kernels import _build
 from equiadapt_tpu_torch.ops.kernels import sam_attention as sa
 from equiadapt_tpu_torch.utils import profiling
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 FP32_BAR = 1e-6
 BF16_BAR = 2e-2

@@ -46,6 +46,7 @@ from equiadapt_tpu_torch.utils.registry import (  # noqa: E402
     get_image_canonicalizer,
     get_segmentation_prediction_network,
 )
+from torch_port_cpu import one_intra_op_thread  # noqa: E402, F401
 
 SEED = 2 ** 33 + 21
 SIZE, B, N = 64, 3, 3
@@ -71,12 +72,8 @@ S = _settings()
 
 
 @pytest.fixture(autouse=True)
-def _threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
+def _fp32():
     fp32_only()
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -55,6 +55,7 @@ from equiadapt_tpu_torch.ops import boxes as tboxes
 from equiadapt_tpu_torch.pipelines import segmentation as tpipe
 from equiadapt_tpu_torch.utils import registry as treg
 from equiadapt_tpu_torch.utils.jax_weights import flax_placements
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 KEY = jax.random.key(0)
 TOL = dict(rtol=1e-5, atol=1e-5)

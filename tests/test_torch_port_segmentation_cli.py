@@ -21,7 +21,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from equiadapt_tpu.models.segmentation import SAMLite as JSAMLite
 from equiadapt_tpu.pipelines.segmentation import ImageSegmentationPipeline as JPipe
@@ -33,19 +32,11 @@ from equiadapt_tpu.utils import (
 from equiadapt_tpu_torch.cli import segmentation_train as seg
 from equiadapt_tpu_torch.pipelines.segmentation import segmentation_group_inference
 from equiadapt_tpu_torch.utils.jax_weights import flax_placements
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_CONFIGS = os.path.join(REPO, "examples", "images", "segmentation", "configs")
 SMALL = ["experiment.num_epochs=1"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as tests/test_torch_port_cli.py runs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def run(argv):
@@ -56,7 +47,7 @@ def run(argv):
 
 
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory, one_thread):
+def trained(tmp_path_factory, one_intra_op_thread):  # noqa: F811
     ck = tmp_path_factory.mktemp("seg") / "ck"
     state, printed = run(SMALL + [f"checkpoint.checkpoint_path={ck}"])
     return ck, state, printed

@@ -31,6 +31,7 @@ import torch
 from equiadapt_tpu.ops.pallas import select_warp as jsw
 import equiadapt_tpu_torch as tp
 from equiadapt_tpu_torch.ops.kernels import select_warp as tsw
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}

@@ -32,6 +32,7 @@ import torch
 
 from equiadapt_tpu.ops.pallas import select_warp as jsw
 from equiadapt_tpu_torch.ops.kernels import select_warp as tsw
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 GROUPS = {"C4": (4, False), "D4": (4, True), "C8": (8, False), "D8": (8, True)}
 BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}

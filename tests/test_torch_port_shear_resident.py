@@ -29,6 +29,7 @@ import torch
 
 from equiadapt_tpu.ops.pallas import shear_rotate as jsr
 from equiadapt_tpu_torch.ops.kernels import shear_rotate as tsr
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 THREADS = 1024  # kResidentThreads
 

@@ -29,6 +29,7 @@ from equiadapt_tpu.images import (
 from equiadapt_tpu.models import ResNet50 as JResNet50
 import equiadapt_tpu_torch as tp
 from equiadapt_tpu_torch.ops.warp import group_angles
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -44,6 +44,7 @@ from equiadapt_tpu.models import ResNet50 as JResNet50
 from equiadapt_tpu.ops.pallas.shear_rotate import warp_rotate_center_fast as j_fast
 import equiadapt_tpu_torch as tp
 from equiadapt_tpu_torch.images.networks import steerable as tst
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 IMG = 32
 

@@ -30,6 +30,7 @@ import equiadapt_tpu_torch as tp
 from equiadapt_tpu_torch.images.networks import steerable as tst
 from equiadapt_tpu_torch.utils.jax_weights import flax_variables
 from equiadapt_tpu_torch.utils.profiling import counters
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 YAML = dict(in_channels=3, out_channels=16, kernel_size=9, num_layers=2)
 HIT, MISS = "steerable/kernel_cache_hit", "steerable/kernel_cache_miss"

@@ -14,8 +14,12 @@ its port counterpart and checks that
 
 The deliberate exceptions are listed below, one reason each; nothing else
 is excused.
+
+The last test holds the port's test files themselves to their CPU-thread
+rule (`tests/torch_port_cpu.py`).
 """
 
+import ast
 import dataclasses
 import functools
 import importlib
@@ -26,6 +30,8 @@ from pathlib import Path
 
 import flax.linen as fnn
 import pytest
+import torch
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_MODULES = sorted(
@@ -212,3 +218,31 @@ def test_every_listed_exception_is_still_needed():
         for key in excused:
             assert key in public_names(jmod), (name, key)
             assert not hasattr(pmod, key), (name, key)
+
+
+def test_every_port_test_file_runs_on_one_intra_op_thread():
+    """Every `tests/test_torch_port_*.py` imports `one_intra_op_thread` from
+    `tests/torch_port_cpu.py` at its top level, and none sets torch's
+    thread count itself: the torch setters that module calls appear in no
+    port test file."""
+    here = Path(__file__).parent
+    shared = ast.parse((here / "torch_port_cpu.py").read_text())
+    setters = {node.attr for node in ast.walk(shared)
+               if isinstance(node, ast.Attribute) and node.attr.startswith("set_")}
+    assert setters
+    files = sorted(here.glob("test_torch_port_*.py"))
+    assert files
+    unpinned, setting = [], []
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        if not any(isinstance(node, ast.ImportFrom) and node.module == "torch_port_cpu"
+                   and any(a.name == "one_intra_op_thread" and a.asname is None
+                           for a in node.names)
+                   for node in tree.body):
+            unpinned.append(path.name)
+        if any(isinstance(node, ast.Attribute) and node.attr in setters
+               for node in ast.walk(tree)):
+            setting.append(path.name)
+    assert not unpinned, f"do not import the shared thread fixture: {unpinned}"
+    assert not setting, f"set torch's thread count themselves: {setting}"
+    assert torch.get_num_threads() == 1

@@ -29,6 +29,7 @@ from equiadapt_tpu_torch.tutorials import (
     nbody as t_nbody,
     understanding_discrete_canonicalization as t_discrete,
 )
+from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 DEADLINE = 120  # seconds a tutorial may take here
 TINY = dict(device="cpu", size=16)
