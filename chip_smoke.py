@@ -8,8 +8,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc compiles the port's CUDA sources from this checkout, one
    nvcc per source, all started together; every kernel (select, shear,
-   orbit, exact warp, kNN, SAM attention) must report 0 bytes of stack
-   frame and no spills (ptxas);
+   orbit, exact warp, kNN, SAM attention, spectral contraction) must report
+   0 bytes of stack frame and no spills (ptxas);
 3. kernels against their plain PyTorch versions:
    - K1 (steered rotate-select) and K2 (fused rotate-select-roll) with
      `torch.equal` (fp32 and bf16; C4, C8, D8; C in {3, 16}; random
@@ -355,6 +355,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    line's `cli_checks`; launches in its `launches`, and by tutorial in
    `tutorial_launches`); then
    `ops.warp.resize`'s five methods on the card against the CPU.
+25. the spectral contraction (`ops/kernels/spectral_conv.py`) at so2's two
+   spectral layers with the spectra of steerable.yaml's kernels: the
+   hidden layer, (256, 80 -> 80, 56 x 29; output tile o80), and the last,
+   (256, 80 -> 4, 48 x 25; o8). At each, one launch of its tile within
+   1e-5 of the plain version and the layer within 1e-5 of F.conv2d in
+   float64, timed beside its bound, the plain version and cuDNN's direct
+   convolution of the layer; then the `paths/steerable_conv/*`,
+   kernel-cache and launch counters of one served so2 batch at the cell's
+   shapes.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
@@ -500,6 +509,19 @@ SEG_SERVE_PROMPTS = 8
 # plain version after it (2^-9 of a weight)
 SAM_ATTN_SHAPES = {"global": (8, 12, 64, 64, 64), "window": (200, 12, 14, 14, 64)}
 SAM_ATTN_BAR = 1e-2
+# phase 25: the spectral contraction at so2's two spectral layers, by the
+# output tile each launches: (batch, input orders, output orders, map side,
+# kernel), steerable.yaml's widths at the so2 cell's serving shapes: the
+# hidden layer, 16 fields of each order 0, 1, 2 both ways at 56 px, and
+# the last, those 80 channels to 2 vector fields (order 1) at 48 px; its
+# bar on max |kernel - plain| / max |plain|: both sum the 80 channels'
+# complex products in fp32, in other orders (about 80 roundings of 2^-24),
+# and the layer's, against F.conv2d in float64, 1e-5 of the largest value
+# (the fp32 transforms round at about 1e-7 of the maps' norm a pass)
+SO2_HIDDEN = (0,) * 16 + (1,) * 16 + (2,) * 16
+SPECTRAL_SHAPES = {"o80": (256, SO2_HIDDEN, SO2_HIDDEN, 56, 9),
+                   "o8": (256, SO2_HIDDEN, (1, 1), 48, 9)}
+SPECTRAL_BAR = 1e-5
 # SAM ViT-B's decoder tokens with a box prompt (the IoU token, 4 mask
 # tokens, the box's two corners) and heads: the scores its attention
 # writes out a served batch, 2 T^2 + 5 T P a prompt and head for P image
@@ -5440,6 +5462,117 @@ def tutorial_launches(run, entry_name):
     return run["launches"].get(f"{name}/{tag.split(',')[0]}", 0)
 
 
+def spectral_layer_row(sc, tst, tile, gen, bwidth):
+    """One of phase 25's layers, SPECTRAL_SHAPES[tile]: x_hat the rfft2 of
+    a random (B, Cin, H, H) map, the spectrum of a random `SteerableConv`'s
+    kernel. One launch of output tile `tile` within SPECTRAL_BAR of the
+    plain version, the layer (`spectral_conv2d`) within it of F.conv2d in
+    float64; timed beside its bound (8 B Cin Cout bins FLOP at the fp32
+    rate, or its bytes at `bwidth`, the larger), the plain version, cuDNN's
+    direct fp32 F.conv2d of the whole layer (autotuned; the yardstick only:
+    the port takes the spectral path there) and the spectral layer, medians
+    of WINDOWS windows of 3 calls taking turns."""
+    B, in_orders, out_orders, H, K = SPECTRAL_SHAPES[tile]
+    with torch.no_grad():
+        kernel = tst.SteerableConv(in_orders, out_orders, K, device=DEVICE,
+                                   generator=gen).kernel()
+        Cout, Cin = kernel.shape[:2]
+        x = torch.randn(B, Cin, H, H, generator=gen, device=DEVICE)
+        fft = sc.fft_shape(H, H, 0)
+        spectrum = sc.kernel_spectrum(kernel, fft, 0)
+        x_hat = torch.fft.rfft2(x, s=fft)
+        sc.reset_launches()
+        got = sc.spectral_contraction(x_hat, spectrum)
+        sync()
+        assert sc.path_launches == {f"spectral_contraction/float32/{tile}": 1}, sc.path_launches
+        want = sc.spectral_contraction_plain(x_hat, spectrum)
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= SPECTRAL_BAR, (tile, err)
+        ref = torch.nn.functional.conv2d(x.double(), kernel.double())
+        layer_err = float((sc.spectral_conv2d(x, spectrum, K, 0).double() - ref).abs().max()
+                          / ref.abs().max())
+        assert layer_err <= SPECTRAL_BAR, (tile, layer_err)
+        del got, want, ref
+        benchmark = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            timed = windowed_ms({
+                "ms": lambda: sc.spectral_contraction(x_hat, spectrum),
+                "plain_ms": lambda: sc.spectral_contraction_plain(x_hat, spectrum),
+                "library_ms": lambda: torch.nn.functional.conv2d(x, kernel),
+                "layer_ms": lambda: sc.spectral_conv2d(x, spectrum, K, 0)}, reps=3)
+        finally:
+            torch.backends.cudnn.benchmark = benchmark
+    bins = fft[0] * (fft[1] // 2 + 1)
+    flops = 8 * B * Cin * Cout * bins
+    nbytes = 8 * bins * (B * Cin + B * Cout + Cin * Cout)
+    rate = PEAK_FLOPS[torch.cuda.get_device_name(0)]["float32"]
+    bound = {"flops": flops / rate * 1e3, "bytes": nbytes / bwidth * 1e3}
+    by = max(bound, key=bound.get)
+    row = {"shape": [B, Cin, Cout, fft[0], fft[1] // 2 + 1], "path": tile, "max_rel_err": err,
+           "layer_max_rel_err": layer_err, "bar": SPECTRAL_BAR, **timed,
+           "bound_ms": bound[by], "bound": by, "roofline_pct": 100 * bound[by] / timed["ms"],
+           "tflops": flops / timed["ms"] / 1e9}
+    log(f"spectral_contraction {tile}: {json.dumps(row)}")
+    del x, x_hat, spectrum
+    torch.cuda.empty_cache()
+    return row
+
+
+def spectral_conv_phase(bwidth):
+    """Phase 25: the spectral contraction (`ops/kernels/spectral_conv.py`)
+    at so2's two spectral layers, each output tile's row of
+    `spectral_layer_row`. Then one served so2 batch at the cell's shapes
+    (steerable.yaml's serving canonicalizer, bf16, batch 256 at 224 px,
+    ResNet-50) after a warm-up one: its `paths/steerable_conv/*` and
+    kernel-cache counters and the contraction's launches, counted on their
+    own."""
+    from equiadapt_tpu_torch.cli import classification_serve as serve
+    from equiadapt_tpu_torch.cli import classification_train as train
+    from equiadapt_tpu_torch.images.networks import steerable as tst
+    from equiadapt_tpu_torch.ops.kernels import spectral_conv as sc
+    from equiadapt_tpu_torch.utils.profiling import counters
+
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    rows = {tile: spectral_layer_row(sc, tst, tile, gen, bwidth) for tile in SPECTRAL_SHAPES}
+
+    cfg = train.compose(["canonicalization=steerable", "dataset.dataset_name=synthetic",
+                         "dataset.image_size=224", "dataset.num_classes=1000",
+                         "prediction.architecture=resnet50"])
+    pipe = serve.build_serving_pipeline(cfg, DEVICE)
+    images = torch.rand(256, 224, 224, 3, device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(25))
+    keys = ("paths/steerable_conv/spectral", "paths/steerable_conv/direct",
+            "steerable/kernel_cache_hit", "steerable/kernel_cache_miss")
+    with torch.no_grad():
+        pipe(images, training=False)
+        sync()
+        sc.reset_launches()
+        before = counters()
+        pipe(images, training=False)
+        sync()
+        after = counters()
+    served = {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+    served.update({f"launches/{k}": v for k, v in sc.launches.items()})
+    served.update({f"paths/{k}": v for k, v in sc.path_launches.items()})
+    log(f"spectral_contraction served so2 batch: {json.dumps(served)}")
+    assert served["paths/steerable_conv/spectral"] >= 1, served
+    assert served["launches/spectral_contraction/float32"] >= 1, served
+    assert served["steerable/kernel_cache_hit"] == 3, served
+    del pipe, images
+    torch.cuda.empty_cache()
+    return {"contraction": rows, "served": served}
+
+
+def spectral_conv_entry(spc):
+    """The `kernels` line's entry of the spectral contraction from phase 25:
+    its row at each of so2's spectral layers, by output tile, and the
+    launches of the served batch."""
+    return {"name": "spectral_contraction[float32]", **spc["contraction"],
+            "serve_launches": {k: v for k, v in spc["served"].items()
+                               if "spectral_contraction" in k}}
+
+
 def tutorials_phase(sw, orb, src_log):
     """Phase 24: the five tutorials on the card at their own sizes, each
     `main(device=DEVICE)` asserting its property (identical canonical
@@ -5517,7 +5650,8 @@ def main() -> int:
                 f"{row['stack_frame']} bytes stack frame, "
                 f"spills {row['spill_stores']} / {row['spill_loads']} bytes, "
                 f"{row['smem']} bytes static smem")
-    for src in ("select_warp", "shear_rotate", "orbit", "bilinear_warp", "knn", "sam_attention"):
+    for src in ("select_warp", "shear_rotate", "orbit", "bilinear_warp", "knn", "sam_attention",
+                "spectral_conv"):
         # no local memory in any kernel
         rows = results["ptxas"][src]
         assert rows and all(r["stack_frame"] == r["spill_stores"] == r["spill_loads"] == 0
@@ -5845,6 +5979,9 @@ def main() -> int:
         # card against the CPU
         with torch.enable_grad():
             times["tutorials"] = tut = tutorials_phase(sw, orb, src_log)
+        # the spectral contraction (phase 25): its rows at so2's two spectral
+        # layers and the counters of one served so2 batch
+        times["spectral_conv"] = spc = spectral_conv_phase(bwidth)
         for name in TUTORIALS:
             run = tut[name]
             launches.update({f"tutorial_{name}:{k}": v for k, v in run["launches"].items()})
@@ -5914,6 +6051,7 @@ def main() -> int:
         # the fused SAM attention (phase 21): its rows at the segment cell's
         # two shapes and its launches in one served SAM ViT-B batch
         kernels.append(sam_attention_entry(seg))
+        kernels.append(spectral_conv_entry(spc))
         # phase 19's launches, each checked at its own shape (`counted`)
         cli_checked = [row for run in cli_runs.values() for row in run["checked"]]
         cli_checked += [row for run in pc_train["cli"].values() for row in run["checked"]]

@@ -13,16 +13,26 @@ as the real form of the complex product): every (out, in) channel pair of
 the kernel is one block entry, so the kernel is one batched product of
 each pair's 2 J coefficients with its signed ring basis, both gathered by
 a host-built plan. Work and memory grow with the kernel's size times 2 J,
-not with its product with the number of coefficients. Then one
-`F.conv2d` runs on NCHW with OIHW weights. Takes NHWC like the JAX module,
-runs NCHW inside.
+not with its product with the number of coefficients. Takes NHWC like the
+JAX module, runs NCHW inside.
+
+A convolution takes one of two paths (`ops.kernels.spectral_conv.
+conv_path`, from the call's grad mode, dtype, stride and shapes; counters
+`paths/steerable_conv/{spectral,direct}`, one an eager call): "direct",
+one `F.conv2d` with the OIHW kernel (grad mode on, a bf16 input, another
+stride, and shapes where it counts fewer operations), or "spectral" for
+an fp32 call at stride 1 under grad mode off whose shapes favour it: two real FFTs around a channel
+contraction bin by bin (`spectral_conv2d`; the hand-written kernel of
+`csrc/spectral_conv.cu` on the card), fp32 throughout, the same
+cross-correlation up to fp32 rounding of the transforms.
 
 Serving keeps the host out of the card's way. With grad mode off
 (`torch.no_grad()`, `torch.inference_mode()`) a `SteerableConv` assembles
 its kernel once per weight change and reuses it, already cast to the
-input's dtype, while every coefficient leaf is the same tensor with the
-same storage pointer and version counter, on the input's device and dtype
-(counters `steerable/kernel_cache_hit` and `..._miss` in
+input's dtype (on the spectral path with the kernel's spectrum), while
+every coefficient leaf is the same tensor with the same storage pointer
+and version counter, on the input's device and dtype (counters
+`steerable/kernel_cache_hit` and `..._miss` in
 `utils.profiling.counters()`). With grad mode on it assembles the kernel
 on every call, so autograd sees it, and drops what it kept.
 `NormNonlinearity` indexes with tensors kept on the module's device, so no
@@ -51,6 +61,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from equiadapt_tpu_torch.common.layers import global_mean, stats_shard
+from equiadapt_tpu_torch.ops.kernels.spectral_conv import (
+    conv_path, fft_shape, kernel_spectrum, spectral_conv2d)
 from equiadapt_tpu_torch.utils.profiling import count
 
 Tensor = torch.Tensor
@@ -150,9 +162,12 @@ def _assembly_plan(in_orders: Tuple[int, ...], out_orders: Tuple[int, ...],
 
 
 class _KernelCache(NamedTuple):
-    """An assembled kernel and the leaves it was assembled from."""
+    """An assembled kernel, its spectrum at the FFT size `fft` (None on the
+    direct path), and the leaves it was assembled from."""
 
     kernel: Tensor
+    spectrum: Optional[Tensor]
+    fft: Optional[Tuple[int, int]]
     leaves: List[Tensor]
     storages: list  # held so that no new leaf storage can take a freed address
     pointers: List[int]
@@ -166,16 +181,18 @@ class SteerableConv(nn.Module):
 
     With grad mode on, `forward` assembles the kernel on every call and
     drops any kept one. With grad mode off it keeps the kernel, cast to the
-    input's dtype, and reuses it while each leaf is the same tensor with the
-    same `data_ptr()` and `_version` and the input's device and dtype match;
-    any other call assembles it anew (the same operations, so the same
-    values) and keeps that. So an in-place write (a copy, an optimizer
+    input's dtype (and, on the spectral path, its spectrum at the call's FFT
+    size), and reuses it while each leaf is the same tensor with the same
+    `data_ptr()` and `_version` and the input's device, dtype and FFT size
+    match; any other call assembles it anew (the same operations, so the
+    same values) and keeps that. So an in-place write (a copy, an optimizer
     step), `p.data = ...`, `load_state_dict(assign=True)` or `.to()` is seen;
     a write that bypasses the version counter (an in-place write through
     `p.data`; FSDP2's all-gather into its unsharded parameters) is seen only
     through the next grad-on call. Traced calls (`torch.compile`,
-    `torch.export`, tensor subclasses) assemble and keep nothing. Copies and
-    pickles of the module start without the kept kernel."""
+    `torch.export`, tensor subclasses) take the path an eager call would,
+    and assemble, keep and count nothing. Copies and pickles of the module
+    start without the kept kernel."""
 
     _cache: Optional[_KernelCache] = None
 
@@ -217,33 +234,46 @@ class SteerableConv(nn.Module):
         state.pop("_cache", None)
         return state
 
-    def _kept_kernel(self, x: Tensor) -> Tensor:
-        """The kernel in x's dtype, reused while the leaves are unchanged."""
+    def _kept(self, x: Tensor, fft: Optional[Tuple[int, int]]) -> _KernelCache:
+        """The kernel in x's dtype and, for a spectral call (`fft` the
+        transforms' size), its spectrum, reused while the leaves are
+        unchanged."""
         params = self._parameters
         leaves = [params[n] for n in self._names]
         pointers = list(map(Tensor.data_ptr, leaves))
         versions = [p._version for p in leaves]
         kept = self._cache
         if (kept is not None and kept.kernel.dtype == x.dtype
-                and kept.kernel.device == x.device and pointers == kept.pointers
-                and versions == kept.versions
+                and kept.kernel.device == x.device and kept.fft == fft
+                and pointers == kept.pointers and versions == kept.versions
                 and all(map(operator.is_, leaves, kept.leaves))):
             count("steerable/kernel_cache_hit")
-            return kept.kernel
+            return kept
         count("steerable/kernel_cache_miss")
         kernel = self.kernel().to(x.dtype)
-        self._cache = _KernelCache(kernel, leaves, [p.untyped_storage() for p in leaves],
-                                   pointers, versions)
-        return kernel
+        spectrum = None if fft is None else kernel_spectrum(kernel, fft, self.padding)
+        self._cache = _KernelCache(kernel, spectrum, fft, leaves,
+                                   [p.untyped_storage() for p in leaves], pointers, versions)
+        return self._cache
 
     def forward(self, x: Tensor) -> Tensor:
+        K = self.kernel_size
+        path = conv_path(x, _field_channels(self.out_orders), K, self.stride, self.padding)
+        fft = fft_shape(*x.shape[-2:], self.padding) if path == "spectral" else None
+        eager = type(x) is Tensor and not torch.compiler.is_compiling()
+        if eager:
+            count(f"paths/steerable_conv/{path}")
         if torch.is_grad_enabled():
             self._cache = None
-        elif type(x) is Tensor and not torch.compiler.is_compiling():
-            return F.conv2d(x, self._kept_kernel(x), stride=self.stride,
-                            padding=self.padding)
-        return F.conv2d(x, self.kernel().to(x.dtype), stride=self.stride,
-                        padding=self.padding)
+        if eager and not torch.is_grad_enabled():
+            kept = self._kept(x, fft)
+            kernel, spectrum = kept.kernel, kept.spectrum
+        else:
+            kernel = self.kernel().to(x.dtype)
+            spectrum = None if fft is None else kernel_spectrum(kernel, fft, self.padding)
+        if fft is not None:
+            return spectral_conv2d(x, spectrum, K, self.padding)
+        return F.conv2d(x, kernel, stride=self.stride, padding=self.padding)
 
 
 class NormNonlinearity(nn.Module):

@@ -12,4 +12,7 @@ rotate-select-roll (K2), from `csrc/select_warp.cu`.
 `sam_attention`: SAM's attention with its decomposed relative-position
 bias in one kernel, from `csrc/sam_attention.cu` (no TPU counterpart: the
 JAX package writes it out).
+`spectral_conv`: a stride-1 convolution as two real FFTs around a channel
+contraction bin by bin, the contraction from `csrc/spectral_conv.cu` (no
+TPU counterpart: the JAX package's convolution is XLA's).
 """

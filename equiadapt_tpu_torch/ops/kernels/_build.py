@@ -38,7 +38,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("select_warp", "shear_rotate", "bilinear_warp", "knn", "orbit", "sam_attention")
+SOURCES = ("select_warp", "shear_rotate", "bilinear_warp", "knn", "orbit", "sam_attention",
+           "spectral_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -162,14 +163,15 @@ def shapes_only() -> Iterator[None]:
 
 def refuse_grad(tensors: Sequence, kernels: str, differentiable: str) -> None:
     """Raise when autograd would need a gradient of a kernel that has no
-    backward: grad mode is on and a floating tensor among `tensors` requires
-    grad. The CUDA result would carry no `grad_fn`, while the CPU's plain
-    version is differentiable, so the two devices would give different
-    gradients without a word. `differentiable` names the route that will
-    give the gradient on the card."""
+    backward: grad mode is on and a tensor among `tensors` requires grad
+    (a floating or complex one: no other can). The CUDA result would carry
+    no `grad_fn`, while the CPU's plain version is differentiable, so the
+    two devices would give different gradients without a word.
+    `differentiable` names the route that will give the gradient on the
+    card."""
     if not torch.is_grad_enabled():
         return
-    if any(t.is_floating_point() and t.requires_grad for t in tensors):
+    if any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{kernels}: no backward on the card, and an input requires grad "
             f"under grad mode; {differentiable}. Call under torch.no_grad() (or "

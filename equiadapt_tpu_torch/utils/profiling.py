@@ -46,7 +46,8 @@ milliseconds and host syncs a call.
 **Counters.** `count(name, n)` adds to a process-wide counter (host syncs
 by span are counted there too, and `steerable/kernel_cache_hit` /
 `steerable/kernel_cache_miss`, each grad-off call of a `SteerableConv`
-that reused or assembled its kernel; `sam/prompts`, the box prompts SAM
+that reused or assembled its kernel; `paths/steerable_conv/spectral` /
+`paths/steerable_conv/direct`, each eager `SteerableConv` call by its path; `sam/prompts`, the box prompts SAM
 was given, and `sam/attn_score_elems`, the attention score elements its
 written-out calls materialized: none on the fused kernel's path);
 `counters()` returns it with the kernel modules' launch counters
@@ -340,10 +341,11 @@ def counters() -> Dict[str, int]:
     """The counters of `count`, and the hand kernels' launches by wrapper
     and dtype (`launches/...`) and by launch path (`paths/...`)."""
     from equiadapt_tpu_torch.ops.kernels import (
-        bilinear_warp, knn, orbit, sam_attention, select_warp, shear_rotate)
+        bilinear_warp, knn, orbit, sam_attention, select_warp, shear_rotate, spectral_conv)
 
     out = dict(_counts)
-    for m in (select_warp, shear_rotate, orbit, bilinear_warp, knn, sam_attention):
+    for m in (select_warp, shear_rotate, orbit, bilinear_warp, knn, sam_attention,
+              spectral_conv):
         out.update({f"launches/{k}": v for k, v in m.launches.items()})
         out.update({f"paths/{k}": v for k, v in getattr(m, "path_launches", {}).items()})
     return out

@@ -37,6 +37,7 @@ from equiadapt_tpu_torch.ops.kernels import bilinear_warp as tbw
 from equiadapt_tpu_torch.ops.kernels import knn as tknn
 from equiadapt_tpu_torch.ops.kernels import orbit as torbit
 from equiadapt_tpu_torch.ops.kernels import sam_attention as tsa
+from equiadapt_tpu_torch.ops.kernels import spectral_conv as tsc
 from equiadapt_tpu_torch.ops.kernels import select_warp as tsw
 from equiadapt_tpu_torch.ops.kernels import shear_rotate as tsr
 from equiadapt_tpu_torch.utils.export import (
@@ -306,6 +307,9 @@ def _shape_cases(dtype):
     pts = torch.randn(2, 1024, 3, generator=g).to(dtype)
     qkv = torch.randn(2, 196, 3, 12, 64, generator=g).to(dtype)
     rel_h, rel_w = (torch.randn(2, 12, 196, 14, generator=g).to(dtype) for _ in range(2))
+    # the spectral contraction takes complex64 whatever the dtype (so2's hidden layer)
+    x_hat = torch.randn(2, 80, 56, 29, dtype=torch.complex64, generator=g)
+    k_hat = torch.randn(80, 80, 56, 29, dtype=torch.complex64, generator=g)
     return [
         (tsw._select_op, ("select_planes", nchw, zero, idx, None, None, 1, 1),
          tsw.select_planes_plain(nchw, zero, idx)),
@@ -323,6 +327,7 @@ def _shape_cases(dtype):
         (tknn._knn_op, (pts, 20), tknn.knn_indices_plain(pts, 20)),
         (tsa._attention_op, (*qkv.unbind(2), rel_h, rel_w, 14, 14),
          tsa.sam_attention_plain(*qkv.unbind(2), rel_h, rel_w, 14, 14)),
+        (tsc._contraction_op, (x_hat, k_hat), tsc.spectral_contraction_plain(x_hat, k_hat)),
     ]
 
 
@@ -330,7 +335,8 @@ def _shape_cases(dtype):
 def test_every_kernel_operator_has_a_fake_of_its_plain_shape(dtype):
     cases = _shape_cases(dtype)
     ops = {str(op) for op, _, _ in cases}
-    assert len(ops) == 7  # K1-K3 share one operator; K4, K5, K6, K7, K8, SAM's attention
+    # K1-K3 share one operator; K4-K8, SAM's attention, the spectral contraction
+    assert len(ops) == 8
     for op, args, plain in cases:
         meta_args = [[_meta(t) for t in a] if isinstance(a, list) and a
                      and isinstance(a[0], torch.Tensor)
@@ -342,4 +348,4 @@ def test_every_kernel_operator_has_a_fake_of_its_plain_shape(dtype):
                   if isinstance(getattr(torch.ops.eqt, name), torch._ops.OpOverloadPacket)}
     assert registered == {"select_warp", "rot90_flip_orbit", "rot90_centered_select",
                           "shear_rotate_residual", "warp_rotate_center_exact",
-                          "knn_indices", "sam_attention"}
+                          "knn_indices", "sam_attention", "spectral_contraction"}

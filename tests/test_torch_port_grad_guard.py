@@ -49,6 +49,17 @@ def test_refuse_grad_raises_under_grad_mode():
         _build.refuse_grad([torch.zeros(2), x], "kernel KX", "see item 99")
 
 
+def test_refuse_grad_raises_for_a_complex_input():
+    """A complex tensor that requires grad (the spectral contraction's
+    spectra) is refused like a floating one."""
+    x = torch.zeros(2, 3, dtype=torch.complex64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward on the card.*item 99"):
+        _build.refuse_grad([torch.zeros(2, dtype=torch.complex64), x], "kernel KX",
+                           "see item 99")
+    with torch.no_grad():
+        _build.refuse_grad([x], "kernel KX", "see item 99")
+
+
 @pytest.mark.parametrize("context", ["no_grad", "inference_mode"])
 def test_refuse_grad_passes_without_grad_mode(context):
     x = torch.zeros(2, 3, requires_grad=True)

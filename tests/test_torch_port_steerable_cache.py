@@ -4,20 +4,26 @@ indices (`images/networks/steerable.py`), on the CPU at
 
 * grad off (`torch.no_grad()`, `torch.inference_mode()`): the first call
   assembles each `SteerableConv`'s kernel (3 misses), the second reuses
-  it (3 hits), both `torch.equal` to the grad-on output, which assembles
-  live;
+  it (3 hits), both `torch.equal` to a new network's first grad-off call
+  with the same weights, which assembles live on the same path. The
+  hidden layer takes the spectral path there and the grad-on call the
+  direct one, so the grad-on output is held within the spectral path's
+  bar (`test_torch_port_spectral_conv.py`: 1e-5 times the largest value);
 * every way of changing the weights (an in-place copy, an AdamW step,
   `.data` reassignment, `load_state_dict(assign=True)`, `.to(float64)` and
   back, the Flax loader) is seen: the next grad-off output is
   `torch.equal` to a fresh network's with the same weights, and misses
   are counted;
-* grad on: no kept kernel is read, the gradients reach every leaf;
+* grad on: no kept kernel is read, the output is `torch.equal` to a new
+  network's grad-on call (and the kept grad-off output to a new network's
+  grad-off call: each on its own path), the gradients reach every leaf;
 * `NormNonlinearity`'s index buffers are int64 tensors on the module's
   device, outside the `state_dict`, and index as the Python lists did.
 
 The card test (`card` marker; skips without CUDA; this file imports no
 JAX) runs the so2 canonicalizer's eval forward at the serving shapes under
-`torch.cuda.set_sync_debug_mode("error")`:
+`torch.cuda.set_sync_debug_mode("error")`, its hidden layer on the spectral
+path through the contraction kernel:
 
     python -m pytest --noconftest tests/test_torch_port_steerable_cache.py
 """
@@ -34,6 +40,14 @@ from torch_port_cpu import one_intra_op_thread  # noqa: F401
 
 YAML = dict(in_channels=3, out_channels=16, kernel_size=9, num_layers=2)
 HIT, MISS = "steerable/kernel_cache_hit", "steerable/kernel_cache_miss"
+# the spectral path against the direct one: fp32 transforms, 1e-5 times the
+# largest value (test_torch_port_spectral_conv.py)
+SPECTRAL_BAR = 1e-5
+
+
+def _spectral_close(got, ref):
+    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=SPECTRAL_BAR * np.abs(ref).max())
 
 
 @pytest.fixture
@@ -89,7 +103,9 @@ def test_grad_off_reuses_the_assembled_kernel(mode):
             b = net(x)
     assert (first.misses, first.hits) == (3, 0)
     assert (second.misses, second.hits) == (0, 3)
-    assert torch.equal(a, live) and torch.equal(b, live)
+    fresh = _fresh_output(net, x)
+    assert torch.equal(a, fresh) and torch.equal(b, fresh)
+    _spectral_close(a, live)
 
 
 def _inplace_copy(net):
@@ -155,7 +171,10 @@ def test_grad_on_assembles_live_and_reaches_every_leaf():
     with _Counted() as counted:
         out = net(x)
     assert (counted.hits, counted.misses) == (0, 0)
-    assert out.grad_fn is not None and torch.equal(out.detach(), kept)
+    fresh = _net(seed=99)
+    fresh.load_state_dict(net.state_dict())
+    assert out.grad_fn is not None and torch.equal(out.detach(), fresh(x).detach())
+    assert torch.equal(kept, _fresh_output(net, x))
     assert all(conv._cache is None for conv in net.modules()
                if isinstance(conv, tst.SteerableConv))
     out.square().sum().backward()
@@ -237,10 +256,16 @@ def test_so2_canonicalizer_eval_forward_makes_no_host_sync(card):
     """The serving build of `steerable.yaml` at the so2 cell's shapes
     (batch 256, 224 px, resize 64, fast warps, bf16): after a warm-up and a
     weight change, the canonicalizer's grad-off forward (3 misses, then 3
-    hits) makes no host sync; the kept kernels give the network vectors
-    the grad-on live assembly gives, bit for bit."""
+    hits) makes no host sync; the kept kernels and spectra give the
+    network vectors a copy of the network assembling live gives, bit for
+    bit, and the grad-on (direct) vectors within the spectral bar. The
+    hidden and last layers take the spectral path through the contraction
+    kernel, the bf16 first layer the direct one."""
+    import copy
+
     from equiadapt_tpu_torch.cli import classification_serve as serve
     from equiadapt_tpu_torch.cli import classification_train as train
+    from equiadapt_tpu_torch.ops.kernels import spectral_conv as sc
 
     cfg = train.compose(["canonicalization=steerable", "dataset.dataset_name=synthetic",
                          "dataset.image_size=224", "dataset.num_classes=10",
@@ -251,8 +276,10 @@ def test_so2_canonicalizer_eval_forward_makes_no_host_sync(card):
                    generator=torch.Generator(card).manual_seed(0))
     seen = {}
     net.register_forward_hook(lambda _m, args, out: seen.update(x=args[0], v=out))
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
+    deterministic, tf32 = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    # fp32 convolutions in fp32, as the serving cell runs them: the grad-on
+    # direct path is held to the spectral one within an fp32 bar
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False
     try:
         with torch.no_grad():
             canon.canonicalize(x)  # builds the warp kernels
@@ -263,17 +290,26 @@ def test_so2_canonicalizer_eval_forward_makes_no_host_sync(card):
             try:
                 with _Counted() as first:
                     assembled, _ = canon.canonicalize(x)
+                sc.reset_launches()
+                before = counters()
                 with _Counted() as second:
                     kept, _ = canon.canonicalize(x)
+                after, launched = counters(), dict(sc.launches)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-        kept_vectors = seen["v"]
-        live_vectors = net(seen["x"]).detach()  # grad on: live assembly
+            kept_vectors = seen["v"]
+            fresh_vectors = copy.deepcopy(net)(seen["x"])  # a copy keeps no kernel
+        live_vectors = net(seen["x"]).detach()  # grad on: live assembly, direct
     finally:
-        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = deterministic, tf32
+    paths = {p: after.get(f"paths/steerable_conv/{p}", 0)
+             - before.get(f"paths/steerable_conv/{p}", 0) for p in ("spectral", "direct")}
     assert (first.misses, first.hits, second.misses, second.hits) == (3, 0, 0, 3)
+    assert paths == {"spectral": 2, "direct": 1}
+    assert launched == {"spectral_contraction/float32": 2}
     assert torch.equal(assembled, kept)
-    assert torch.equal(kept_vectors, live_vectors)
+    assert torch.equal(kept_vectors, fresh_vectors)
+    _spectral_close(kept_vectors, live_vectors)
 
 
 @pytest.mark.card
