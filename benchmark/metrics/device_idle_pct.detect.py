@@ -1,0 +1,8 @@
+"""The share of the traced window of the detection cell in which no device
+operation ran, in percent."""
+
+from benchmark.harness.readings import idle
+
+
+def read(record):
+    return idle(record, "detect")

@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc compiles the port's CUDA sources from this checkout, one
    nvcc per source, all started together; every kernel (select, shear,
-   orbit, exact warp, kNN, SAM attention, spectral contraction) must report
+   orbit, exact warp, kNN, SAM attention, spectral contraction, RoIAlign,
+   NMS) must report
    0 bytes of stack frame and no spills (ptxas);
 3. kernels against their plain PyTorch versions:
    - K1 (steered rotate-select) and K2 (fused rotate-select-roll) with
@@ -364,6 +365,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    convolution of the layer; then the `paths/steerable_conv/*`,
    kernel-cache and launch counters of one served so2 batch at the cell's
    shapes.
+26. Mask R-CNN ResNet-50-FPN (`models/maskrcnn.py`): RoIAlign
+   (`ops/kernels/roi_align.py`) in fp32 and bf16 at the detect cell's box
+   (8,000 regions, 7 x 7) and mask (800, 14 x 14) launches, P2-P5 of 8
+   images at 800 px, against its plain version (fp32 within 1e-5, bf16
+   within one bf16 rounding), timed beside its byte floor and the plain
+   version; the detect cell's configuration served (bf16, 8 x 1024 px, the
+   benchmark's weights): its two NMS launches (`ops/kernels/nms.py`) held
+   `torch.equal` to the plain version on their own inputs and timed, the
+   detector and the paste under `set_sync_debug_mode("error")`, 1,000
+   proposals and 100 detections an image, and two images against the
+   benchmark's reference within the cell's limits.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
@@ -5609,6 +5621,168 @@ def tutorials_phase(sw, orb, src_log):
     return out
 
 
+# phase 26, Mask R-CNN (`models/maskrcnn.py`): RoIAlign's shapes (regions,
+# output, sampling ratio) at the detect cell's box and mask launches, and the
+# configuration the detect cell serves
+MASKRCNN_CONFIG = os.path.join("benchmark", "configs", "maskrcnn-r50fpn-c4.json")
+MASKRCNN_B, MASKRCNN_SEED = 8, 2 ** 31 + 26
+ROI_ALIGN_SHAPES = {"box": (1000, 7), "mask": (100, 14)}
+ROI_ALIGN_BF16_ULP = 2.0 ** -7  # one bf16 rounding of a sum the two sides round apart
+
+
+def roi_align_case(ra, gen, regions, P, dtype, bwidth):
+    """RoIAlign on the card at a launch of the detect cell (P2-P5 of a batch
+    of MASKRCNN_B at 800 px, 256 channels, channels-last; `regions` a
+    image of random boxes on the levels their sizes give) against its plain
+    version run on the card: max |diff| over max |plain| (fp32: within
+    1e-5; bf16: within one bf16 rounding), the kernel's and the plain
+    version's device ms, the byte floor's bound."""
+    from equiadapt_tpu_torch.models.maskrcnn import level_of
+
+    B, C = MASKRCNN_B, 256
+    maps = [torch.randn(B, C, 200 // 2 ** i, 200 // 2 ** i, generator=gen, device=DEVICE)
+            .to(dtype).contiguous(memory_format=torch.channels_last) for i in range(4)]
+    R = B * regions
+    xy = torch.rand(R, 2, generator=gen, device=DEVICE) * 760 - 20
+    wh = torch.exp(torch.rand(R, 2, generator=gen, device=DEVICE) * 6.0) + 1.0
+    boxes = torch.cat([xy, xy + wh], -1)
+    batch = torch.arange(B, device=DEVICE, dtype=torch.int32).repeat_interleave(regions)
+    level = level_of(boxes).int()
+    scales = [0.25, 0.125, 0.0625, 0.03125]
+    got = ra.roi_align(maps, boxes, batch, level, scales, P, 2)
+    want = torch.cat([ra.roi_align_plain(maps, boxes[i:i + 500], batch[i:i + 500],
+                                         level[i:i + 500], scales, P, 2)
+                      for i in range(0, R, 500)])
+    sync()
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    bar = 1e-5 if dtype == torch.float32 else ROI_ALIGN_BF16_ULP
+    assert err <= bar, ("roi_align", P, dtype, err)
+    ms = windowed_ms({"kernel": lambda: ra.roi_align(maps, boxes, batch, level, scales, P, 2)},
+                     reps=10)
+    plain_ms = cuda_ms(lambda: ra.roi_align_plain(maps, boxes[:500], batch[:500], level[:500],
+                                                  scales, P, 2), reps=2, warmup=1) * R / 500
+    out_bytes = R * C * P * P * got.element_size()
+    map_bytes = sum(m.numel() for m in maps) * got.element_size()
+    return {"regions": R, "P": P, "err": err, "bar": bar, "ms": ms["kernel"],
+            "ms_range": ms["kernel_range"], "plain_ms": plain_ms,
+            "floor_ms": 1e3 * (out_bytes + map_bytes) / bwidth}
+
+
+def nms_case(nms, boxes, scores, valid, thr):
+    """The kernels' keep flags against the plain version's on the card,
+    `torch.equal`, with both device times (the plain version in chunks of
+    segments)."""
+    keep, counts = nms.segment_nms(boxes, scores, valid, thr)
+    order, _ = nms.sort_segments(scores, valid)
+    sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    plain = torch.cat([nms.nms_keep_plain(sb[i:i + 60], counts[i:i + 60], thr)
+                       for i in range(0, sb.shape[0], 60)])
+    kernel = nms.nms_keep(sb, counts, thr)
+    sync()
+    assert torch.equal(kernel, plain), ("nms", tuple(boxes.shape))
+    ms = windowed_ms({"kernel": lambda: nms.nms_keep(sb, counts, thr)}, reps=10)
+    plain_ms = cuda_ms(lambda: nms.nms_keep_plain(sb[:60], counts[:60], thr), reps=1,
+                       warmup=0) * sb.shape[0] / 60
+    c = counts.long()
+    return {"segments": int(sb.shape[0]), "N": int(sb.shape[1]),
+            "candidates": int(c.sum()), "pairs": int((c * (c - 1) // 2).sum()),
+            "ms": ms["kernel"], "ms_range": ms["kernel_range"], "plain_ms": plain_ms}
+
+
+def maskrcnn_phase(bwidth):
+    """Phase 26: Mask R-CNN ResNet-50-FPN on the card. RoIAlign against its
+    plain version in fp32 and bf16 at the cell's box and mask launches;
+    then the detect cell's configuration served (`build_serving_pipeline`,
+    bf16, batch MASKRCNN_B at 1024 px, weights from the benchmark's seed):
+    both NMS launches of a served batch against the plain version with
+    `torch.equal` on their own inputs, the detector and the paste under
+    `torch.cuda.set_sync_debug_mode("error")`, the counters (1,000
+    proposals and 100 detections an image), and two images against the
+    reference teacher-forced (`benchmark/harness/detect.image_numbers`)
+    within the cell's limits."""
+    import json as _json
+
+    from benchmark.harness import data as bdata
+    from benchmark.harness import detect as bdetect
+    from benchmark.reference import maskrcnn_r50fpn_c4 as mref
+    from equiadapt_tpu_torch.ops.kernels import nms, roi_align as ra
+    from equiadapt_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    rows = {}
+    for name, (regions, P) in ROI_ALIGN_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).removeprefix("torch.")
+            rows[f"{name}/{tag}"] = roi_align_case(ra, gen, regions, P, dtype, bwidth)
+            log(f"roi_align {name} {tag}: {_json.dumps(rows[f'{name}/{tag}'])}")
+
+    settings = _json.load(open(MASKRCNN_CONFIG))["settings"]
+    limits = _json.load(open(os.path.join("benchmark", "limits",
+                                          "maskrcnn-r50fpn-c4.detect.json")))
+    pipe = bdetect.build_pipeline(settings, DEVICE)
+    w = bdata.make_weights(mref.param_spec(settings), MASKRCNN_SEED, DEVICE)
+    bdata.load_weights(pipe, w)
+    x = bdata.smooth_images(bdata.generator(MASKRCNN_SEED, "pool0", DEVICE), MASKRCNN_B,
+                            settings["dataset"]["image_size"])
+    net = pipe.prediction_network
+    with torch.no_grad():
+        pipe.detect(x)  # warm-up: cuDNN's autotune, the anchors
+        sync()
+        images_c, info = pipe.canonicalizer(x, None, training=False)
+        sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            det = net(images_c)
+            net.paste_masks(det["mask_probs"], det["boxes"], tuple(x.shape[1:3]))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync()
+        net.keep = {}
+        before = profiling.counters()
+        with profiling.recording():
+            out, info = pipe.detect(x, return_probs=True)
+        sync()
+        after = profiling.counters()
+        keep, net.keep = net.keep, None
+    counted = {k: (after[k] - before.get(k, 0)) / MASKRCNN_B for k in after
+               if k.startswith("maskrcnn/")}
+    log(f"maskrcnn served counters per image: {_json.dumps(counted)}")
+    assert counted["maskrcnn/proposals"] == settings["maskrcnn"]["rpn_post_nms_top_n"], counted
+    assert counted["maskrcnn/detections"] == settings["maskrcnn"]["box_detections_per_img"], counted
+    Bx, L, K = keep["rpn_boxes"].shape[:3]
+    N, C1 = keep["det_scores"].shape[1:3]
+    rows["nms_rpn"] = nms_case(nms, keep["rpn_boxes"].reshape(Bx * L, K, 4),
+                               keep["rpn_scores"].reshape(Bx * L, K),
+                               keep["rpn_valid"].reshape(Bx * L, K),
+                               mref.RPN_NMS_THRESH)
+    rows["nms_final"] = nms_case(nms, keep["det_boxes"].transpose(1, 2).reshape(-1, N, 4),
+                                 keep["det_scores"].transpose(1, 2).reshape(-1, N),
+                                 keep["det_valid"].transpose(1, 2).reshape(-1, N),
+                                 mref.BOX_NMS_THRESH)
+    log(f"nms: {_json.dumps({k: rows[k] for k in ('nms_rpn', 'nms_final')})}")
+    turns = torch.round(info.element.rotation_deg / 90.0).long() % 4
+    got = {"canonical": images_c, "keep": keep, "out": out}
+    numbers = {}
+    with torch.no_grad():
+        for b, rec in enumerate(bdetect.program_images(got, MASKRCNN_B)[:2]):
+            for k, v in bdetect.image_numbers(mref, w, settings, rec, int(turns[b])).items():
+                numbers[k] = max(numbers.get(k, 0.0), v)
+    log(f"maskrcnn served batch against the reference: {_json.dumps(numbers)}")
+    for k, v in numbers.items():
+        assert v <= limits[k], (k, v, limits[k])
+    del pipe, net, keep, got, out
+    torch.cuda.empty_cache()
+    return {"rows": rows, "counters": counted, "numbers": numbers, "syncs": 0}
+
+
+def maskrcnn_entries(mr):
+    """The `kernels` line's entries of phase 26: RoIAlign by launch and
+    dtype, NMS at the served batch's two launches."""
+    ra_rows = {k: v for k, v in mr["rows"].items() if not k.startswith("nms")}
+    return [{"name": "roi_align[bfloat16,float32]", **ra_rows},
+            {"name": "nms[float32]", "rpn": mr["rows"]["nms_rpn"], "final": mr["rows"]["nms_final"]}]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -5982,6 +6156,8 @@ def main() -> int:
         # the spectral contraction (phase 25): its rows at so2's two spectral
         # layers and the counters of one served so2 batch
         times["spectral_conv"] = spc = spectral_conv_phase(bwidth)
+        # Mask R-CNN (phase 26): RoIAlign's and NMS's rows, one served batch
+        times["maskrcnn"] = mr = maskrcnn_phase(bwidth)
         for name in TUTORIALS:
             run = tut[name]
             launches.update({f"tutorial_{name}:{k}": v for k, v in run["launches"].items()})
@@ -6052,6 +6228,7 @@ def main() -> int:
         # two shapes and its launches in one served SAM ViT-B batch
         kernels.append(sam_attention_entry(seg))
         kernels.append(spectral_conv_entry(spc))
+        kernels += maskrcnn_entries(mr)
         # phase 19's launches, each checked at its own shape (`counted`)
         cli_checked = [row for run in cli_runs.values() for row in run["checked"]]
         cli_checked += [row for run in pc_train["cli"].values() for row in run["checked"]]

@@ -8,12 +8,15 @@ defaults, SAM ViT-B (`prediction.architecture=sam_vit_b`,
 `models.sam.SamModel`) and batches of 8 images with 8 box prompts each,
 then the command line. `build_serving_pipeline`
 applies fast warps and bf16 compute to the canonicalizer (its canonical
-images handed on in bf16) and `prediction.dtype=bfloat16` to the model, and reads
-`prediction.architecture` (`sam_vit_b`, or the SAMLite variants `sam` and
-`sam_vit`, which compute in fp32). Weights are fresh from the seed. One
+images handed on in bf16) and `prediction.dtype=bfloat16` to every model that
+takes a dtype, and reads `prediction.architecture` (`sam_vit_b`, the SAMLite
+variants `sam` and `sam_vit`, which compute in fp32, or the detector
+`maskrcnn_resnet50_fpn`, `models.maskrcnn.MaskRCNN`, served through
+`ImageSegmentationPipeline.detect`: images in, input-frame boxes, labels,
+scores and uint8 masks out). Weights are fresh from the seed. One
 untimed warm-up call on the fixed batch shape builds the kernels and runs
 cuDNN's autotuning; then five synthetic batches (`synthetic_coco_batch`)
-are served through `ImageSegmentationPipeline.serve` and the throughput is
+are served through `ImageSegmentationPipeline.serve` (a detector: `detect`) and the throughput is
 printed:
 
     python -m equiadapt_tpu_torch.cli.segmentation_serve
@@ -53,6 +56,7 @@ PROMPTS = 8
 DEFAULTS = [f"config={os.path.join(CONFIG_DIR, 'default.yaml')}",
             "prediction.architecture=sam_vit_b", "experiment.batch_size=8"]
 PROMPTABLE = ("sam", "sam_vit", "sam_vit_b")
+DETECTORS = ("maskrcnn_resnet50_fpn",)
 
 
 def build_serving_pipeline(cfg: Config, device, **model_kw) -> ImageSegmentationPipeline:
@@ -66,16 +70,18 @@ def build_serving_pipeline(cfg: Config, device, **model_kw) -> ImageSegmentation
         "prediction.dtype=bfloat16",
     )
     arch = cfg.prediction.architecture
-    if arch not in PROMPTABLE:
-        raise ValueError(f"{arch} is not a promptable segmentation network")
+    if arch not in PROMPTABLE + DETECTORS:
+        raise ValueError(f"{arch} is neither a promptable segmentation network nor a "
+                         f"detector")
     torch.manual_seed(cfg.experiment.seed)
     size = cfg.dataset.image_size
     in_shape = (size, size, 3)
     net = get_image_canonicalization_network(cfg.canonicalization, in_shape, device=device)
     canon = get_image_canonicalizer(cfg.canonicalization, net, in_shape, device=device)
-    kw = {"dtype": getattr(torch, cfg.prediction.dtype)} if arch == "sam_vit_b" else {}
-    sam = get_segmentation_prediction_network(arch, size, device=device, **kw, **model_kw)
-    return ImageSegmentationPipeline(canonicalizer=canon, prediction_network=sam).eval()
+    net = get_segmentation_prediction_network(arch, size, device=device,
+                                              dtype=getattr(torch, cfg.prediction.dtype),
+                                              **model_kw)
+    return ImageSegmentationPipeline(canonicalizer=canon, prediction_network=net).eval()
 
 
 def main(argv, device="cuda"):
@@ -83,26 +89,34 @@ def main(argv, device="cuda"):
     pipe = build_serving_pipeline(cfg, device)
     B, size, seed = cfg.experiment.batch_size, cfg.dataset.image_size, cfg.experiment.seed
 
+    detector = cfg.prediction.architecture in DETECTORS
+
     def batch(i):
         b = synthetic_coco_batch(generator(seed, i, device), B, image_size=size,
                                  num_prompts=PROMPTS)
-        return b["image"], b["targets"]["boxes"]
+        return (b["image"],) if detector else (b["image"], b["targets"]["boxes"])
+
+    def serve(*args):  # the served call, and a result to wait for
+        if detector:
+            out, _ = pipe.detect(*args)
+            return out["scores"]
+        return pipe.serve(*args)[1]
 
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True  # one batch shape: autotune once
     try:
         with torch.no_grad():
             t0 = time.perf_counter()
-            _, ious, _ = pipe.serve(*batch(0))
-            float(ious.sum())  # waits for the device
+            float(serve(*batch(0)).sum())  # waits for the device
             warmup = time.perf_counter() - t0
-            print(f"warm-up: {warmup:.1f}s (batch {B} x {PROMPTS} boxes @ {size}px)")
+            what = "detections" if detector else f"{PROMPTS} boxes"
+            print(f"warm-up: {warmup:.1f}s (batch {B} x {what} @ {size}px)")
             inputs = [batch(1 + i) for i in range(NUM_BATCHES)]
             with profile_trace(cfg.experiment.profile_dir, enabled=cfg.experiment.profile):
                 t0 = time.perf_counter()
-                for x, boxes in inputs:
-                    _, ious, _ = pipe.serve(x, boxes)
-                float(ious.sum())  # waits for the device
+                for args in inputs:
+                    last = serve(*args)
+                float(last.sum())  # waits for the device
                 dt = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.benchmark = benchmark

@@ -6,8 +6,10 @@ from equiadapt_tpu_torch.models.convert import (
     convert_vit_checkpoint,
     load_pretrained_prediction,
     load_torch_state_dict,
+    torchvision_resnet_names,
 )
 from equiadapt_tpu_torch.models.detection import MaskRCNNLite, decode_boxes, maskrcnn_lite_loss
+from equiadapt_tpu_torch.models.maskrcnn import MaskRCNN
 
 from equiadapt_tpu_torch.models.egnn import (
     GCL,
@@ -52,7 +54,8 @@ from equiadapt_tpu_torch.models.resnet import (
     WideResNet101,
 )
 
-__all__ = ["MaskRCNNLite", "maskrcnn_lite_loss", "decode_boxes",
+__all__ = ["MaskRCNNLite", "maskrcnn_lite_loss", "decode_boxes", "MaskRCNN",
+           "torchvision_resnet_names",
            "apply_pretrained_to_state", "convert_resnet_checkpoint",
            "convert_vit_checkpoint", "load_pretrained_prediction",
            "load_torch_state_dict", "GCL", "GCLRF", "GNN", "NBodyMLP", "NBodyTransformer",

@@ -45,6 +45,7 @@ Tensor = torch.Tensor
 
 __all__ = [
     "convert_resnet_checkpoint",
+    "torchvision_resnet_names",
     "convert_vit_checkpoint",
     "load_torch_state_dict",
     "load_pretrained_prediction",
@@ -175,6 +176,47 @@ def convert_resnet_checkpoint(state_dict: Mapping[str, Any],
         if "Dense_0.weight" in out and _put(out, "Dense_0.weight", w, allow_skip=True):
             _put(out, "Dense_0.bias", bias)
     sd.finish()
+    return out
+
+
+def torchvision_resnet_names(keys, stage_sizes: Sequence[int] = (3, 4, 6, 3)
+                             ) -> Dict[str, str]:
+    """{port name: torchvision name} of a port ResNet's state-dict `keys`
+    (headless, Bottleneck or BasicBlock, the stages of `stage_sizes`), the
+    rules of `convert_resnet_checkpoint` written as names: ``Conv_0`` /
+    ``BatchNorm_0`` -> ``conv1`` / ``bn1``; block b, the j-th of stage s ->
+    ``layer{s}.{j}``, its ``Conv_c`` / ``BatchNorm_c`` -> ``conv{c+1}`` /
+    ``bn{c+1}`` and the projection -> ``downsample.0`` / ``downsample.1``.
+    BatchNorm's step counters map to nothing (frozen BatchNorm has none)."""
+    keys = [k for k in keys if not k.endswith("num_batches_tracked")]
+    blocks = sorted({k.split(".")[0] for k in keys
+                     if k.startswith(("Bottleneck_", "BasicBlock_"))},
+                    key=lambda s: int(s.split("_")[1]))
+    if len(blocks) != sum(stage_sizes):
+        raise ValueError(f"{len(blocks)} blocks, stages {tuple(stage_sizes)} — wrong network?")
+    convs = 3 if blocks and blocks[0].startswith("Bottleneck") else 2
+    where = {}
+    b = 0
+    for s, n in enumerate(stage_sizes, start=1):
+        for j in range(n):
+            where[blocks[b]] = f"layer{s}.{j}"
+            b += 1
+    out = {}
+    for k in keys:
+        head, _, leaf = k.rpartition(".")
+        parts = head.split(".")
+        if parts[0] in ("Conv_0", "BatchNorm_0") and len(parts) == 1:
+            out[k] = ("conv1" if parts[0] == "Conv_0" else "bn1") + "." + leaf
+            continue
+        if parts[0] not in where or len(parts) != 2:
+            raise ValueError(f"{k}: not a leaf of a headless ResNet")
+        kind, c = parts[1].split("_")
+        c = int(c)
+        if c == convs:
+            sub = "downsample.0" if kind == "Conv" else "downsample.1"
+        else:
+            sub = ("conv" if kind == "Conv" else "bn") + str(c + 1)
+        out[k] = f"{where[parts[0]]}.{sub}.{leaf}"
     return out
 
 

@@ -15,4 +15,9 @@ JAX package writes it out).
 `spectral_conv`: a stride-1 convolution as two real FFTs around a channel
 contraction bin by bin, the contraction from `csrc/spectral_conv.cu` (no
 TPU counterpart: the JAX package's convolution is XLA's).
+`roi_align`: Mask R-CNN's multi-scale RoIAlign, every region and level in
+one launch, from `csrc/roi_align.cu`; `nms`: greedy NMS of many segments
+(an IoU bitmask, then a scan a segment) on the device, from `csrc/nms.cu`
+(no TPU counterpart: the JAX package pools no regions and suppresses
+nothing).
 """

@@ -55,7 +55,7 @@ Tensor = torch.Tensor
 __all__ = ["ImageClassifierPipeline", "to_network_layout", "TrainState",
            "classification_loss",
            "make_optimizer", "create_train_state", "make_train_step",
-           "make_eval_step", "vanilla_inference", "group_inference"]
+           "make_eval_step", "vanilla_inference", "group_inference", "orbit_logits"]
 
 
 def to_network_layout(x: Tensor, network: nn.Module) -> Tensor:
@@ -327,6 +327,19 @@ def vanilla_inference(model: nn.Module, batch: Dict[str, Tensor],
     return {"test/acc": torch.mean(hit), "test/per_class_acc": per_class}
 
 
+def orbit_logits(model: nn.Module, x: Tensor, *, num_rotations: int = 4,
+                 group_type: str = "rotation", grayscale: bool = False):
+    """The batch's orbit through the model in eval: element g applies
+    rotate(x, +theta_g) (then the hflip for the reflection coset), the
+    |G| copies group-major in one call (`materialize_orbit`: K4 where every
+    element is a quarter turn of a square image). Returns (logits (|G| B,
+    classes), info). Span: `group/orbit` around the orbit's making."""
+    with annotate("group/orbit"):
+        orbit = materialize_orbit(x, num_rotations, group_type=group_type,
+                                  padding_mode="zeros" if grayscale else "border", sign=1.0)
+    return model(orbit, training=False)
+
+
 def group_inference(model: nn.Module, batch: Dict[str, Tensor], *,
                     num_rotations: int = 4, group_type: str = "rotation",
                     grayscale: bool = False) -> Dict[str, Tensor]:
@@ -336,12 +349,10 @@ def group_inference(model: nn.Module, batch: Dict[str, Tensor], *,
     accuracy of each element and their mean are reported."""
     x, labels = batch["image"], batch["label"]
     B = x.shape[0]
-    mode = "zeros" if grayscale else "border"
-    orbit = materialize_orbit(x, num_rotations, group_type=group_type,
-                              padding_mode=mode, sign=1.0)
-    G = orbit.shape[0] // B
     with torch.no_grad():
-        logits, _ = model(orbit, training=False)
+        logits, _ = orbit_logits(model, x, num_rotations=num_rotations,
+                                 group_type=group_type, grayscale=grayscale)
+    G = logits.shape[0] // B
     pred = torch.argmax(logits, -1).reshape(G, B)
     accs = torch.mean((pred == labels.to(pred.device)[None]).float(), dim=1)
     out = {f"test/acc_element_{g}": accs[g] for g in range(G)}

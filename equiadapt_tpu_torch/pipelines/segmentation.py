@@ -8,7 +8,9 @@ promptable model (`models.segmentation.SAMLite`, or SAM ViT-B,
 `invert_masks` maps predicted masks back to the input frame (scalar
 induced rep: kernel K1 on their view of NCHW memory for a discrete
 canonicalizer). `serve` is the serving call: images and box prompts in,
-input-frame mask logits and predicted IoU out. Task loss: 20 focal + dice
+input-frame mask logits and predicted IoU out. `detect` is a detector's
+(`models.maskrcnn.MaskRCNN`): images in, input-frame boxes, scores,
+labels and thresholded masks out. Task loss: 20 focal + dice
 + MSE of the predicted against the achieved IoU; the prior regularization
 drives the canonicalizer (BASELINE config 5, prior weight 100).
 
@@ -41,6 +43,7 @@ from equiadapt_tpu_torch.utils.profiling import annotate
 Tensor = torch.Tensor
 
 THRESHOLDS = (0.5, 0.55, 0.6, 0.65, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95)
+MASK_THRESHOLD = 0.5  # a detector's mask probabilities to its served masks
 
 __all__ = [
     "ImageSegmentationPipeline",
@@ -86,6 +89,47 @@ class ImageSegmentationPipeline(nn.Module):
             with annotate("predict"):
                 masks, ious = self.prediction_network(images_c, targets_c["boxes"])
             return self.invert_masks(info, masks), ious, info
+
+    def detect(self, images: Tensor,
+               return_probs: bool = False) -> Tuple[Dict[str, Tensor], object]:
+        """The serving call of a detector (`models.maskrcnn.MaskRCNN`):
+        images (B, H, W, 3) canonicalized, the detector run on the canonical
+        images, its masks pasted into the canonical frame, and the boxes
+        (`invert_boxes`) and masks (`invert_masks`) mapped back to the input
+        frame. Returns ({"boxes" (B, D, 4) fp32, "scores" (B, D), "labels"
+        (B, D), "valid" (B, D), "masks" (B, D, H, W) uint8: the inverted
+        probabilities above `MASK_THRESHOLD`, 0.5; with `return_probs` also
+        "probs", those probabilities (fp32)}, info). Slots past the
+        detections that survive have score 0, `valid` False and zero masks.
+        Spans: `pipeline`, with the canonicalizer's and `predict` (the
+        detector's and `maskrcnn/paste`) inside it; no host sync past the
+        canonicalizer."""
+        with annotate("pipeline"):
+            images_c, info = self.canonicalizer(images, None, training=False)
+            with annotate("predict"):
+                net = self.prediction_network
+                det = net(images_c)
+                probs = net.paste_masks(det.pop("mask_probs"), det["boxes"],
+                                        tuple(images.shape[1:3]))
+            probs = self.invert_masks(info, probs)
+            out = {"boxes": self.invert_boxes(info, det["boxes"], images.shape[2]),
+                   "scores": det["scores"], "labels": det["labels"], "valid": det["valid"],
+                   "masks": (probs > MASK_THRESHOLD).to(torch.uint8)}
+            if return_probs:
+                out["probs"] = probs
+            return out, info
+
+    def invert_boxes(self, info, boxes: Tensor, width: int) -> Tensor:
+        """(B, N, 4) canonical-frame xyxy boxes -> the input frame: turned by
+        the element's inverse angle (`ops.boxes.rotate_boxes`), then
+        flipped where the element reflects (the inverse of
+        `_canonicalize_targets`)."""
+        element = info.element
+        boxes = rotate_boxes(boxes, -element.rotation_deg, width)
+        if getattr(element, "reflection", None) is not None:
+            r = element.reflection[:, None, None].to(boxes.dtype)
+            boxes = (1.0 - r) * boxes + r * flip_boxes(boxes, width)
+        return boxes
 
     def invert_masks(self, info, masks: Tensor) -> Tensor:
         """(B, N, H, W) canonical-frame masks -> the input frame (scalar

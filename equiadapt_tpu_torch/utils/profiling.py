@@ -23,7 +23,12 @@ continuous canonicalizers; `canon/prep`, the crop and resize, inside it),
 `train/backward` and `train/optimizer` under it, `dist/sync_bn` and
 `dist/grad_sync`, and SAM's `sam/encoder` (with `sam/attn/window`,
 `sam/attn/global` and `sam/neck`), `sam/prompt`, `sam/decoder` and
-`sam/upsample` (`models.sam`). A span records only while a
+`sam/upsample` (`models.sam`), Mask R-CNN's `maskrcnn/backbone`,
+`maskrcnn/rpn`, `maskrcnn/nms` (each NMS call, inside the RPN and the RoI
+heads), `maskrcnn/roi_heads` (with `maskrcnn/roi_align`,
+`maskrcnn/box_head` and `maskrcnn/mask_head`) and `maskrcnn/paste`
+(`models.maskrcnn`), and `group/orbit` (`pipelines.classification`'s
+orbit of a group evaluation). A span records only while a
 `torch.profiler` session records or inside `recording()`; otherwise it is
 a shared null context (two flag reads, no allocation). Recording, a span enters
 `torch.profiler.record_function(name)` (so it shows in captures with CPU
@@ -50,6 +55,11 @@ that reused or assembled its kernel; `paths/steerable_conv/spectral` /
 `paths/steerable_conv/direct`, each eager `SteerableConv` call by its path; `sam/prompts`, the box prompts SAM
 was given, and `sam/attn_score_elems`, the attention score elements its
 written-out calls materialized: none on the fused kernel's path);
+Mask R-CNN counts on the card (`count_on_device`, while spans record:
+the sums stay on the device until `counters()` reads them)
+`maskrcnn/proposals` (valid proposals), `maskrcnn/nms_candidates` and
+`maskrcnn/nms_pairs` (valid boxes entering NMS and the pairs of a segment
+its bitmask pass compares) and `maskrcnn/detections` (valid detections);
 `counters()` returns it with the kernel modules' launch counters
 (`launches/<wrapper>/<dtype>` and `paths/<wrapper>/<dtype>/<path>`).
 
@@ -73,14 +83,16 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+Tensor = torch.Tensor
+
 __all__ = ["profile_trace", "annotate", "recording", "last_session", "Session",
-           "SpanCall", "count", "counters", "device_memory_stats",
+           "SpanCall", "count", "count_on_device", "counters", "device_memory_stats",
            "device_op_attribution", "idle_by_span", "profile_report",
            "OUTSIDE", "PROGRAM_SPANS"]
 
 OUTSIDE = "outside the program"
 # the first path segment of every span the program names
-PROGRAM_SPANS = ("pipeline", "canon", "predict", "train", "dist", "sam")
+PROGRAM_SPANS = ("pipeline", "canon", "predict", "train", "dist", "sam", "maskrcnn", "group")
 SYNC_MESSAGE = "called a synchronizing CUDA operation"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -158,6 +170,7 @@ _prev_mode: Optional[int] = None  # the sync debug mode before a session set it
 _local = threading.local()
 _lock = threading.RLock()  # sessions open and close, calls and counters add, one thread at a time
 _counts: Dict[str, int] = {}
+_device_counts: Dict[str, Tensor] = {}  # `count_on_device`'s sums, on their devices
 
 
 def _on() -> bool:
@@ -337,15 +350,36 @@ def count(name: str, n: int = 1) -> None:
         _counts[name] = _counts.get(name, 0) + n
 
 
+def count_on_device(name: str, n) -> None:
+    """Add the integer tensor `n` (any shape: its sum) to the counter `name`
+    on its device, while spans record (`annotate`'s condition); otherwise
+    nothing. `n` may also be a function that makes that tensor, called only
+    while spans record, so that a count that costs launches costs none
+    otherwise. The sum is read on the host only by `counters()`, so a served
+    call that counts what it computed on the card does not wait for it."""
+    if not (_autograd_profiler._is_profiler_enabled or _live):
+        return
+    if callable(n):
+        n = n()
+    total = n.detach().sum(dtype=torch.int64)
+    with _lock:
+        held = _device_counts.get(name)
+        _device_counts[name] = total if held is None else held + total.to(held.device)
+
+
 def counters() -> Dict[str, int]:
     """The counters of `count`, and the hand kernels' launches by wrapper
     and dtype (`launches/...`) and by launch path (`paths/...`)."""
     from equiadapt_tpu_torch.ops.kernels import (
-        bilinear_warp, knn, orbit, sam_attention, select_warp, shear_rotate, spectral_conv)
+        bilinear_warp, knn, nms, orbit, roi_align, sam_attention, select_warp, shear_rotate,
+        spectral_conv)
 
     out = dict(_counts)
+    with _lock:
+        for name, total in _device_counts.items():
+            out[name] = out.get(name, 0) + int(total)
     for m in (select_warp, shear_rotate, orbit, bilinear_warp, knn, sam_attention,
-              spectral_conv):
+              spectral_conv, roi_align, nms):
         out.update({f"launches/{k}": v for k, v in m.launches.items()})
         out.update({f"paths/{k}": v for k, v in getattr(m, "path_launches", {}).items()})
     return out

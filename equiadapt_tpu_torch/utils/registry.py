@@ -12,6 +12,7 @@ image size, which the Flax modules read from their input.
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional, Tuple
 
 import torch
@@ -45,6 +46,7 @@ from equiadapt_tpu_torch.models import (
     ResNet50,
 )
 from equiadapt_tpu_torch.models.detection import MaskRCNNLite
+from equiadapt_tpu_torch.models.maskrcnn import MaskRCNN
 from equiadapt_tpu_torch.models.sam import SamModel, sam_vit_b_kwargs
 from equiadapt_tpu_torch.models.segmentation import SAMLite
 from equiadapt_tpu_torch.models.vit import ViT
@@ -218,22 +220,31 @@ def get_image_prediction_network(
 
 def get_segmentation_prediction_network(architecture: str, image_size: int,
                                         num_classes: int = 91, device="cuda",
+                                        dtype: Optional[torch.dtype] = None,
                                         **kw) -> nn.Module:
     """SAMLite ("sam", light encoder; "sam_vit", SAM's ViT encoder with 4
     mask tokens) for images of `image_size`, SAM ViT-B at its published
-    widths ("sam_vit_b", `models.sam.SamModel`; `dtype` its computation's),
-    or MaskRCNNLite ("maskrcnn", `num_classes` classes; it takes any image
-    size); `kw` goes to the module."""
-    if architecture == "sam_vit_b":
-        return SamModel(**dict(sam_vit_b_kwargs(image_size), **kw), device=device)
-    if architecture == "sam":
-        return SAMLite(image_size, device=device, **kw)
-    if architecture == "sam_vit":
-        return SAMLite(image_size, encoder="sam_vit", num_mask_tokens=4,
-                       device=device, **kw)
-    if architecture == "maskrcnn":
-        return MaskRCNNLite(num_classes=num_classes, device=device, **kw)
-    raise ValueError(f"{architecture} is not implemented as a segmentation network")
+    widths ("sam_vit_b", `models.sam.SamModel`), MaskRCNNLite ("maskrcnn",
+    `num_classes` classes; it takes any image size), or Mask R-CNN
+    ResNet-50-FPN at torchvision's settings ("maskrcnn_resnet50_fpn",
+    `models.maskrcnn.MaskRCNN`, `num_classes` classes, any image size);
+    `kw` goes to the module. `dtype` is the computation's dtype of the
+    networks that take one (SAM ViT-B, Mask R-CNN); the others compute in
+    fp32 and leave it unread."""
+    builders = {
+        "sam_vit_b": (SamModel, lambda **k: SamModel(**dict(sam_vit_b_kwargs(image_size), **k))),
+        "sam": (SAMLite, lambda **k: SAMLite(image_size, **k)),
+        "sam_vit": (SAMLite, lambda **k: SAMLite(image_size, encoder="sam_vit",
+                                                  num_mask_tokens=4, **k)),
+        "maskrcnn": (MaskRCNNLite, lambda **k: MaskRCNNLite(num_classes=num_classes, **k)),
+        "maskrcnn_resnet50_fpn": (MaskRCNN, lambda **k: MaskRCNN(num_classes=num_classes, **k)),
+    }
+    if architecture not in builders:
+        raise ValueError(f"{architecture} is not implemented as a segmentation network")
+    cls, build = builders[architecture]
+    if dtype is not None and "dtype" in inspect.signature(cls).parameters:
+        kw["dtype"] = dtype
+    return build(device=device, **kw)
 
 
 def get_pointcloud_prediction_network(architecture: str, num_classes: int,

@@ -35,7 +35,9 @@ from equiadapt_tpu.utils.export import load_exported as jax_load_exported
 from equiadapt_tpu_torch.ops.kernels import _build
 from equiadapt_tpu_torch.ops.kernels import bilinear_warp as tbw
 from equiadapt_tpu_torch.ops.kernels import knn as tknn
+from equiadapt_tpu_torch.ops.kernels import nms as tnms
 from equiadapt_tpu_torch.ops.kernels import orbit as torbit
+from equiadapt_tpu_torch.ops.kernels import roi_align as tra
 from equiadapt_tpu_torch.ops.kernels import sam_attention as tsa
 from equiadapt_tpu_torch.ops.kernels import spectral_conv as tsc
 from equiadapt_tpu_torch.ops.kernels import select_warp as tsw
@@ -310,6 +312,13 @@ def _shape_cases(dtype):
     # the spectral contraction takes complex64 whatever the dtype (so2's hidden layer)
     x_hat = torch.randn(2, 80, 56, 29, dtype=torch.complex64, generator=g)
     k_hat = torch.randn(80, 80, 56, 29, dtype=torch.complex64, generator=g)
+    # Mask R-CNN's RoIAlign over two levels and its NMS (fp32 boxes whatever the dtype)
+    maps = [torch.randn(2, 8, 32, 32, generator=g).to(dtype),
+            torch.randn(2, 8, 16, 16, generator=g).to(dtype)]
+    rois = torch.tensor([[1.0, 2.0, 30.0, 20.0], [4.0, 4.0, 90.0, 100.0]])
+    ri = torch.tensor([0, 1], dtype=torch.int32)
+    sboxes = torch.rand(3, 40, 4, generator=g).cumsum(-1) * 10.0
+    counts = torch.tensor([40, 7, 0], dtype=torch.int32)
     return [
         (tsw._select_op, ("select_planes", nchw, zero, idx, None, None, 1, 1),
          tsw.select_planes_plain(nchw, zero, idx)),
@@ -328,6 +337,9 @@ def _shape_cases(dtype):
         (tsa._attention_op, (*qkv.unbind(2), rel_h, rel_w, 14, 14),
          tsa.sam_attention_plain(*qkv.unbind(2), rel_h, rel_w, 14, 14)),
         (tsc._contraction_op, (x_hat, k_hat), tsc.spectral_contraction_plain(x_hat, k_hat)),
+        (tra._roi_align_op, (maps, rois, ri, ri, [0.25, 0.125], 7, 2),
+         tra.roi_align_plain(maps, rois, ri, ri, [0.25, 0.125], 7, 2)),
+        (tnms._nms_op, (sboxes, counts, 0.5), tnms.nms_keep_plain(sboxes, counts, 0.5)),
     ]
 
 
@@ -335,8 +347,9 @@ def _shape_cases(dtype):
 def test_every_kernel_operator_has_a_fake_of_its_plain_shape(dtype):
     cases = _shape_cases(dtype)
     ops = {str(op) for op, _, _ in cases}
-    # K1-K3 share one operator; K4-K8, SAM's attention, the spectral contraction
-    assert len(ops) == 8
+    # K1-K3 share one operator; K4-K8, SAM's attention, the spectral contraction,
+    # Mask R-CNN's RoIAlign and NMS
+    assert len(ops) == 10
     for op, args, plain in cases:
         meta_args = [[_meta(t) for t in a] if isinstance(a, list) and a
                      and isinstance(a[0], torch.Tensor)
@@ -348,4 +361,5 @@ def test_every_kernel_operator_has_a_fake_of_its_plain_shape(dtype):
                   if isinstance(getattr(torch.ops.eqt, name), torch._ops.OpOverloadPacket)}
     assert registered == {"select_warp", "rot90_flip_orbit", "rot90_centered_select",
                           "shear_rotate_residual", "warp_rotate_center_exact",
-                          "knn_indices", "sam_attention", "spectral_contraction"}
+                          "knn_indices", "sam_attention", "spectral_contraction",
+                          "roi_align", "nms_keep"}

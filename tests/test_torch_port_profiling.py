@@ -406,3 +406,20 @@ def test_threads_record_their_own_nesting_and_every_count():
             assert session.calls[c.parent].name == "train/step"
         else:
             assert c.parent == -1
+
+
+def test_count_on_device_makes_a_deferred_count_only_while_recording():
+    made = []
+
+    def n():
+        made.append(1)
+        return torch.tensor([2, 3])
+
+    before = prof.counters().get("test/on_device", 0)
+    prof.count_on_device("test/on_device", n)
+    assert made == [] and prof.counters().get("test/on_device", 0) == before
+    with prof.recording():
+        prof.count_on_device("test/on_device", n)
+        prof.count_on_device("test/on_device", torch.tensor([1]))
+    assert made == [1]
+    assert prof.counters()["test/on_device"] - before == 6
