@@ -376,6 +376,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    detector and the paste under `set_sync_debug_mode("error")`, 1,000
    proposals and 100 detections an image, and two images against the
    benchmark's reference within the cell's limits.
+27. the BatchNorm-residual-ReLU kernel (`ops/kernels/bn_act.py`) at
+   ResNet-50's trunk shapes at batch 256, 224 px (the stem, each stage's
+   inner width with no residual and its output width with the identity
+   and the projected residual), fp32 and bf16, against its plain version
+   (fp32 within 1e-6 of the largest value, bf16 within one bf16
+   rounding), timed beside its byte floor, the plain version and the
+   composed chain it replaces (`F.batch_norm`, the add, `torch.relu`);
+   then one served c8 batch (serving_bf16.yaml at 224 px, batch 256):
+   49 launches, none 33 / identity 12 / projected 4, its logits against
+   the same batch with the modules composed within c8 serve's
+   `logit_err` limit; a ResNet-50 train step and an eval forward under
+   grad mode launch none.
 
 Weights are random, from fixed seeds. fp32 work runs with TF32 off. The
 last line is {"ok": true, "device": {...}}; the lines before it hold the
@@ -4533,10 +4545,14 @@ def export_phase(tp, sw, kn):
     launches K3 / K8 once a call and answers as the live call: the logits
     within the larger of two live calls' spread and one bf16 ulp of the
     largest logit, the frames within 1e-6, the kNN indices equal. The
-    exported serving call timed in turns with the live one."""
+    serving graph holds ResNet-50's 49 `eqt.bn_act` nodes, or none where the
+    trace's fake convolutions are not channels-last (the live call is then
+    taken with the modules composed, as the graph has them). The exported
+    serving call timed in turns with the live one."""
     import tempfile
 
     from equiadapt_tpu_torch.cli import classification_serve as serve
+    from equiadapt_tpu_torch.ops.kernels import bn_act as ba
     from equiadapt_tpu_torch.utils.config import compose_config
     from equiadapt_tpu_torch.utils.export import export_apply, load_exported
 
@@ -4575,7 +4591,22 @@ def export_phase(tp, sw, kn):
             out[f"{name}_export_s"] = time.perf_counter() - t0
             out[f"{name}_bytes"] = len(blobs[name])
             out[f"{name}_nodes"] = eqt_nodes(blobs[name])
-        assert out["fixed_nodes"] == out["symbolic_nodes"] == ["eqt.select_warp.default"], out
+        # ResNet-50's 49 BatchNorm-residual-ReLU sites take `bn_act` in the graph where
+        # the trace's fake convolutions give the card's channels-last strides; where
+        # they give NCHW strides (torch 2.11's meta convolution on CUDA) the graph
+        # composes the modules, and the live answers below are taken on that path
+        n_bn = out["fixed_nodes"].count("eqt.bn_act.default")
+        assert n_bn in (0, sum(RESNET50_BN_ACT.values())), out
+        assert out["fixed_nodes"] == out["symbolic_nodes"] == (
+            ["eqt.bn_act.default"] * n_bn + ["eqt.select_warp.default"]), out
+        out["bn_act_nodes"] = n_bn
+        if not n_bn:
+            takes, ba.takes = ba.takes, lambda *a, **k: False
+            try:
+                live["fixed"] = live["symbolic"] = fwd(pipe, x)
+                live["symbolic_small"] = fwd(pipe, x[:EXPORT_SMALL_B])
+            finally:
+                ba.takes = takes
         assert out["pointcloud_nodes"] == out["knn_nodes"] == ["eqt.knn_indices.default"], out
 
     def agree(name, got):
@@ -5783,6 +5814,157 @@ def maskrcnn_entries(mr):
             {"name": "nms[float32]", "rpn": mr["rows"]["nms_rpn"], "final": mr["rows"]["nms_final"]}]
 
 
+# phase 27, the BatchNorm-residual-ReLU kernel (`ops/kernels/bn_act.py`):
+# ResNet-50's trunk at batch 256, 224 px as (channels, side, form) a site,
+# and its launches by form in one forward (the stem and 16 blocks)
+BN_ACT_B = 256
+BN_ACT_SHAPES = {"stem/none": (64, 112, "none"),
+                 **{f"stage{i + 1}/{form}": (64 * 2 ** i * (1 if form == "none" else 4),
+                                             56 // 2 ** i, form)
+                    for i in range(4) for form in ("none", "identity", "projected")}}
+RESNET50_BN_ACT = {"none": 33, "identity": 12, "projected": 4}
+BN_ACT_BARS = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+
+
+def bn_act_row(ba, name, dtype, gen, bwidth):
+    """One of phase 27's rows: a site of BN_ACT_SHAPES in `dtype`,
+    channels-last activations and BatchNorms drawn from `gen`. The kernel
+    against its plain version run on the card (max |diff| over max |plain|,
+    within BN_ACT_BARS; bit-equality reported), then the kernel, the plain
+    version and the composed chain it replaces (`F.batch_norm`, the
+    projection's, the add, `torch.relu`), medians of WINDOWS windows of 10
+    calls taking turns (the host's lag before a window's first launch
+    spread over ten), beside the byte floor (each input read once, the
+    output written once, at `bwidth`)."""
+    from equiadapt_tpu_torch.common.layers import BatchNorm
+
+    C, side, form = BN_ACT_SHAPES[name]
+    shape = (BN_ACT_B, C, side, side)
+
+    def act():
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    def norm():
+        bn = BatchNorm(C, device=DEVICE)
+        with torch.no_grad():
+            bn.weight.copy_(0.5 + torch.rand(C, generator=gen, device=DEVICE))
+            bn.bias.copy_(0.2 * torch.randn(C, generator=gen, device=DEVICE))
+            bn.running_mean.copy_(0.2 * torch.randn(C, generator=gen, device=DEVICE))
+            bn.running_var.copy_(0.5 + torch.rand(C, generator=gen, device=DEVICE))
+        return bn
+
+    y, bn = act(), norm()
+    r = None if form == "none" else act()
+    rbn = norm() if form == "projected" else None
+
+    def chain():
+        out = bn(y, False)
+        if r is not None:
+            out = out + (r if rbn is None else rbn(r, False))
+        return torch.relu(out)
+
+    with torch.no_grad():
+        ba.reset_launches()
+        got = ba.bn_act(y, bn, r, rbn)
+        want = ba.bn_act_plain(y, bn, r, rbn)
+        sync()
+        assert ba.path_launches == {f"bn_act/{str(dtype).removeprefix('torch.')}/{form}": 1}
+        err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        equal = bool(torch.equal(got, want))
+        chain_err = float((chain().float() - want.float()).abs().max()
+                          / want.float().abs().max())
+        assert err <= BN_ACT_BARS[dtype], (name, dtype, err)
+        del got, want
+        timed = windowed_ms({"ms": lambda: ba.bn_act(y, bn, r, rbn),
+                             "library_ms": chain,
+                             "plain_ms": lambda: ba.bn_act_plain(y, bn, r, rbn)}, reps=10)
+    nbytes = (2 if r is None else 3) * y.numel() * y.element_size()
+    bound = 1e3 * nbytes / bwidth
+    row = {"shape": list(shape), "form": form, "max_rel_err": err, "bit_equal": equal,
+           "chain_max_rel_err": chain_err, **timed, "bound_ms": bound,
+           "roofline_pct": 100 * bound / timed["ms"], "gb_per_s": nbytes / timed["ms"] / 1e6,
+           "library_roofline_pct": 100 * bound / timed["library_ms"]}
+    log(f"bn_act {name} {dtype}: {json.dumps(row)}")
+    del y, r
+    torch.cuda.empty_cache()
+    return row
+
+
+def bn_act_phase(bwidth):
+    """Phase 27: the BatchNorm-residual-ReLU kernel at ResNet-50's trunk
+    shapes (`bn_act_row`, fp32 and bf16); then one served c8 batch
+    (serving_bf16.yaml at 224 px, batch BN_ACT_B, after a warm-up one):
+    its launches by form (RESNET50_BN_ACT) and its logits against the same
+    batch with the modules composed (`bn_act.takes` off), within c8
+    serve's `logit_err` limit; a bf16 ResNet-50 train step and an eval
+    forward under grad mode launch none."""
+    import equiadapt_tpu_torch as tp
+    from equiadapt_tpu_torch.cli import classification_serve as serve
+    from equiadapt_tpu_torch.models.resnet import ResNet50
+    from equiadapt_tpu_torch.ops.kernels import bn_act as ba
+    from equiadapt_tpu_torch.utils.config import compose_config
+
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    rows = {f"{name}/{str(dtype).removeprefix('torch.')}": bn_act_row(ba, name, dtype, gen,
+                                                                      bwidth)
+            for dtype in (torch.bfloat16, torch.float32) for name in BN_ACT_SHAPES}
+
+    cfg_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLS_CONFIGS)
+    cfg = compose_config([f"config={cfg_dir}/serving_bf16.yaml", "dataset.image_size=224",
+                          f"experiment.batch_size={BN_ACT_B}"], config_dir=serve.CONFIG_DIR)
+    torch.manual_seed(27)
+    pipe = serve.build_serving_pipeline(cfg, DEVICE).eval()
+    x = tp.synthetic_image_batch(torch.Generator(device=DEVICE).manual_seed(27), BN_ACT_B,
+                                 size=224)["image"]
+    with torch.no_grad():
+        pipe(x, training=False)
+        sync()
+        ba.reset_launches()
+        logits = pipe(x, training=False)[0]
+        sync()
+        served = {**{f"launches/{k}": v for k, v in ba.launches.items()},
+                  **{f"paths/{k}": v for k, v in ba.path_launches.items()}}
+        takes = ba.takes
+        ba.takes = lambda *a, **k: False
+        try:
+            composed = pipe(x, training=False)[0]
+            sync()
+        finally:
+            ba.takes = takes
+    limit = json.load(open(os.path.join("benchmark", "limits",
+                                        "c8-resnet50.serve.json")))["logit_err"]
+    logit_err = float((logits.float() - composed.float()).abs().max()
+                      / composed.float().abs().max())
+    log(f"bn_act served c8 batch: {json.dumps(served)}, logits against the composed "
+        f"modules {logit_err} (limit {limit})")
+    assert served == {"launches/bn_act/bfloat16": sum(RESNET50_BN_ACT.values()),
+                      **{f"paths/bn_act/bfloat16/{k}": v
+                         for k, v in RESNET50_BN_ACT.items()}}, served
+    assert logit_err <= limit, (logit_err, limit)
+    del pipe, x, logits, composed
+
+    net = ResNet50(dtype=torch.bfloat16, device=DEVICE)
+    xs = torch.randn(8, 224, 224, 3, generator=gen, device=DEVICE)
+    ba.reset_launches()
+    with torch.enable_grad():
+        net(xs, training=True).float().square().mean().backward()
+        net(xs, training=False).float().square().mean().backward()
+    sync()
+    assert ba.launches == {}, ba.launches
+    del net, xs
+    torch.cuda.empty_cache()
+    return {"rows": rows, "served": served, "served_logit_err": logit_err,
+            "logit_limit": limit, "train_launches": 0}
+
+
+def bn_act_entry(bna):
+    """The `kernels` line's entry of phase 27: the rows by site and dtype,
+    and the launches of the served c8 batch."""
+    return {"name": "bn_act[bfloat16,float32]", **bna["rows"], "serve_launches": bna["served"],
+            "served_logit_err": bna["served_logit_err"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full results as JSON here")
@@ -6158,6 +6340,9 @@ def main() -> int:
         times["spectral_conv"] = spc = spectral_conv_phase(bwidth)
         # Mask R-CNN (phase 26): RoIAlign's and NMS's rows, one served batch
         times["maskrcnn"] = mr = maskrcnn_phase(bwidth)
+        # the BatchNorm-residual-ReLU kernel (phase 27): its rows at ResNet-50's
+        # trunk shapes, one served c8 batch's launches
+        times["bn_act"] = bna = bn_act_phase(bwidth)
         for name in TUTORIALS:
             run = tut[name]
             launches.update({f"tutorial_{name}:{k}": v for k, v in run["launches"].items()})
@@ -6229,6 +6414,7 @@ def main() -> int:
         kernels.append(sam_attention_entry(seg))
         kernels.append(spectral_conv_entry(spc))
         kernels += maskrcnn_entries(mr)
+        kernels.append(bn_act_entry(bna))
         # phase 19's launches, each checked at its own shape (`counted`)
         cli_checked = [row for run in cli_runs.values() for row in run["checked"]]
         cli_checked += [row for run in pc_train["cli"].values() for row in run["checked"]]

@@ -14,6 +14,12 @@ Flax's momentum 0.99, the running variance updated with the biased batch
 variance). `training` is an argument of `forward`, as in Flax; the module
 mode is not read. `input_layout` names the memory layout the network runs
 fastest on, which `pipelines.classification` hands it.
+
+Each BatchNorm's ReLU, with the residual add before it at a block's end,
+is one launch of `ops.kernels.bn_act` (the BatchNorm, the projection's
+BatchNorm, the add and the ReLU in one pass) when `bn_act.takes` the call:
+eval with grad mode off, on the card, channels-last bf16 or fp32 (serving).
+Every other call composes the modules; both compute one function.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from equiadapt_tpu_torch.common.layers import BatchNorm, CastConv2d, CastLinear
+from equiadapt_tpu_torch.ops.kernels import bn_act
 
 Tensor = torch.Tensor
 
@@ -35,6 +42,18 @@ __all__ = ["ResNet", "BasicBlock", "Bottleneck", "ResNet18", "ResNet50",
 
 def _bn(ch: int, device) -> BatchNorm:
     return BatchNorm(ch, momentum=0.99, epsilon=1e-5, device=device)
+
+
+def _bn_relu(bn: BatchNorm, y: Tensor, training: bool, residual: Optional[Tensor] = None,
+             residual_bn: Optional[BatchNorm] = None) -> Tensor:
+    """relu(bn(y) [+ residual] [+ residual_bn(residual)]): one `bn_act`
+    launch when `bn_act.takes` the call, else the modules composed."""
+    if bn_act.takes(y, training, residual):
+        return bn_act.bn_act(y, bn, residual, residual_bn)
+    y = bn(y, training)
+    if residual is not None:
+        y = y + (residual if residual_bn is None else residual_bn(residual, training))
+    return torch.relu(y)
 
 
 class BasicBlock(nn.Module):
@@ -56,10 +75,11 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: Tensor, training: bool = False) -> Tensor:
         t = training
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), t))
-        y = self.BatchNorm_1(self.Conv_1(y), t)
-        residual = self.BatchNorm_2(self.Conv_2(x), t) if self.project else x
-        return torch.relu(y + residual)
+        y = _bn_relu(self.BatchNorm_0, self.Conv_0(x), t)
+        y = self.Conv_1(y)
+        if self.project:
+            return _bn_relu(self.BatchNorm_1, y, t, self.Conv_2(x), self.BatchNorm_2)
+        return _bn_relu(self.BatchNorm_1, y, t, x)
 
 
 class Bottleneck(nn.Module):
@@ -85,11 +105,12 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: Tensor, training: bool = False) -> Tensor:
         t = training
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), t))
-        y = torch.relu(self.BatchNorm_1(self.Conv_1(y), t))
-        y = self.BatchNorm_2(self.Conv_2(y), t)
-        residual = self.BatchNorm_3(self.Conv_3(x), t) if self.project else x
-        return torch.relu(y + residual)
+        y = _bn_relu(self.BatchNorm_0, self.Conv_0(x), t)
+        y = _bn_relu(self.BatchNorm_1, self.Conv_1(y), t)
+        y = self.Conv_2(y)
+        if self.project:
+            return _bn_relu(self.BatchNorm_2, y, t, self.Conv_3(x), self.BatchNorm_3)
+        return _bn_relu(self.BatchNorm_2, y, t, x)
 
 
 class ResNet(nn.Module):
@@ -149,7 +170,7 @@ class ResNet(nn.Module):
         """NHWC images (any strides: an NHWC-contiguous batch runs the
         convolutions channels-last) -> logits, or the pooled features."""
         x = self.Conv_0(x.permute(0, 3, 1, 2).to(self.dtype))
-        x = torch.relu(self.BatchNorm_0(x, training))
+        x = _bn_relu(self.BatchNorm_0, x, training)
         if not self.small_images:
             x = F.max_pool2d(x, 3, 2, 1)
         stages = []

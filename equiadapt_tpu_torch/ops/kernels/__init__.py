@@ -20,4 +20,7 @@ one launch, from `csrc/roi_align.cu`; `nms`: greedy NMS of many segments
 (an IoU bitmask, then a scan a segment) on the device, from `csrc/nms.cu`
 (no TPU counterpart: the JAX package pools no regions and suppresses
 nothing).
+`bn_act`: a ResNet's eval BatchNorm, residual add and ReLU in one pass
+over channels-last activations, from `csrc/bn_act.cu` (no TPU counterpart:
+XLA fuses them into the JAX package's convolutions).
 """

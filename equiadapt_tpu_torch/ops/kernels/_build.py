@@ -39,7 +39,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("select_warp", "shear_rotate", "bilinear_warp", "knn", "orbit", "sam_attention",
-           "spectral_conv", "roi_align", "nms")
+           "spectral_conv", "roi_align", "nms", "bn_act")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

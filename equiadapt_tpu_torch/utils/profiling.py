@@ -371,15 +371,15 @@ def counters() -> Dict[str, int]:
     """The counters of `count`, and the hand kernels' launches by wrapper
     and dtype (`launches/...`) and by launch path (`paths/...`)."""
     from equiadapt_tpu_torch.ops.kernels import (
-        bilinear_warp, knn, nms, orbit, roi_align, sam_attention, select_warp, shear_rotate,
-        spectral_conv)
+        bilinear_warp, bn_act, knn, nms, orbit, roi_align, sam_attention, select_warp,
+        shear_rotate, spectral_conv)
 
     out = dict(_counts)
     with _lock:
         for name, total in _device_counts.items():
             out[name] = out.get(name, 0) + int(total)
     for m in (select_warp, shear_rotate, orbit, bilinear_warp, knn, sam_attention,
-              spectral_conv, roi_align, nms):
+              spectral_conv, roi_align, nms, bn_act):
         out.update({f"launches/{k}": v for k, v in m.launches.items()})
         out.update({f"paths/{k}": v for k, v in getattr(m, "path_launches", {}).items()})
     return out

@@ -34,6 +34,7 @@ from equiadapt_tpu.utils.export import export_apply as jax_export_apply
 from equiadapt_tpu.utils.export import load_exported as jax_load_exported
 from equiadapt_tpu_torch.ops.kernels import _build
 from equiadapt_tpu_torch.ops.kernels import bilinear_warp as tbw
+from equiadapt_tpu_torch.ops.kernels import bn_act as tba
 from equiadapt_tpu_torch.ops.kernels import knn as tknn
 from equiadapt_tpu_torch.ops.kernels import nms as tnms
 from equiadapt_tpu_torch.ops.kernels import orbit as torbit
@@ -319,6 +320,10 @@ def _shape_cases(dtype):
     ri = torch.tensor([0, 1], dtype=torch.int32)
     sboxes = torch.rand(3, 40, 4, generator=g).cumsum(-1) * 10.0
     counts = torch.tensor([40, 7, 0], dtype=torch.int32)
+    # a ResNet's BatchNorm-residual-ReLU (channels-last; fp32 BatchNorm parameters)
+    act, res = (torch.randn(2, 64, 56, 56, generator=g).to(dtype)
+                .contiguous(memory_format=torch.channels_last) for _ in range(2))
+    bn = [torch.rand(64, generator=g) + 0.5 for _ in range(4)]
     return [
         (tsw._select_op, ("select_planes", nchw, zero, idx, None, None, 1, 1),
          tsw.select_planes_plain(nchw, zero, idx)),
@@ -340,6 +345,7 @@ def _shape_cases(dtype):
         (tra._roi_align_op, (maps, rois, ri, ri, [0.25, 0.125], 7, 2),
          tra.roi_align_plain(maps, rois, ri, ri, [0.25, 0.125], 7, 2)),
         (tnms._nms_op, (sboxes, counts, 0.5), tnms.nms_keep_plain(sboxes, counts, 0.5)),
+        (tba._bn_act_op, (act, bn, 1e-5, res, bn, 1e-5), tba._plain(act, bn, 1e-5, res, bn, 1e-5)),
     ]
 
 
@@ -348,8 +354,8 @@ def test_every_kernel_operator_has_a_fake_of_its_plain_shape(dtype):
     cases = _shape_cases(dtype)
     ops = {str(op) for op, _, _ in cases}
     # K1-K3 share one operator; K4-K8, SAM's attention, the spectral contraction,
-    # Mask R-CNN's RoIAlign and NMS
-    assert len(ops) == 10
+    # Mask R-CNN's RoIAlign and NMS, the BatchNorm-residual-ReLU
+    assert len(ops) == 11
     for op, args, plain in cases:
         meta_args = [[_meta(t) for t in a] if isinstance(a, list) and a
                      and isinstance(a[0], torch.Tensor)
@@ -362,4 +368,4 @@ def test_every_kernel_operator_has_a_fake_of_its_plain_shape(dtype):
     assert registered == {"select_warp", "rot90_flip_orbit", "rot90_centered_select",
                           "shear_rotate_residual", "warp_rotate_center_exact",
                           "knn_indices", "sam_attention", "spectral_contraction",
-                          "roi_align", "nms_keep"}
+                          "roi_align", "nms_keep", "bn_act"}
